@@ -1,0 +1,1 @@
+"""Port of ``classmate_rag_tpu.index``."""
