@@ -1,37 +1,57 @@
 """Chip smoke test of the PyTorch/CUDA port (classmate_rag_tpu_torch).
 
-Drives the port's main path, the batched fused hybrid query, on one
-CUDA card at the E5-base width (d = 768) over a 200,000-chunk corpus,
-and holds every kernel of that path against its plain PyTorch version.
+Drives the port's two main paths on one CUDA card and holds every kernel
+of them against its plain PyTorch version: the batched fused hybrid
+query at the E5-base width (d = 768) over a 200,000-chunk corpus, and
+the E5-base encoder (full width, 12 layers, random weights from the
+model name) that ingests passages and encodes the questions it answers.
 
     python3 chip_smoke.py            # on a machine with one NVIDIA GPU
 
 Phases, one JSON line each; any failure exits non-zero with no result:
 
-1. device    card name and power limit (nvidia-smi), kernel build seconds;
-2. kernels   each kernel vs its plain version at the main path's shape
-             and at edge cases; its time, the plain version's, one
-             PyTorch library call's, and the card's bound;
-3. slice     4 batches of 256 queries through IndexStore.hybrid_topk_batch
-             (launch counts reset just before, read just after), each
-             held against the same step on CPU copies of its inputs;
-             recall@8 against a numpy oracle; warm batch latency;
-4. approx    one batch with the approx route forced (fast BM25 + exact
-             pool rescore), held against the CPU the same way;
-5. retriever HybridRetriever over the same store vs a CPU copy of it.
+1. device     card name and power limit (nvidia-smi), kernel build seconds;
+2. kernels    each kernel vs its plain version at the main paths' shapes
+              and at edge cases; its time, the plain version's, one
+              PyTorch library call's, and the card's bound;
+3. slice      4 batches of 256 queries through IndexStore.hybrid_topk_batch
+              (launch counts reset just before, read just after), each
+              held against the same step on CPU copies of its inputs;
+              recall@8 against a numpy oracle; warm batch latency;
+4. approx     one batch with the approx route forced (fast BM25 + exact
+              pool rescore), held against the CPU the same way;
+5. retriever  HybridRetriever over the same store vs a CPU copy of it;
+6. encoder    E5-base with the fused epilogues and flash attention
+              (fused_epilogue=True, flash_min_seq=128; launch counts reset
+              just before, read just after, 12/24/12 a forward) and with
+              the default configuration (none of the three kernels) on
+              8,192 passages, 32 long texts and 256 questions: cosine
+              between the two, and against a CPU copy on a subset;
+              tokens/s, ms a forward by bucket, share of the bf16 peak;
+7. ingest_ask E5 passage vectors into a new store, then 256 questions
+              through HybridRetriever with the encoder's query tensor
+              handed to the store on the card (launch counts reset just
+              before the ingest, read after the first ask); ids equal to
+              the host-encode path's; recall@8 against the oracle fed the
+              port's own vectors; encode, step and warm batch latency.
 
 Then the kernels line ({"kernels": [...]}), the nvidia-smi line, and
-last {"ok": true, "device": {...}}.
+last {"ok": true, "device": {...}}. ``--profile PATH`` also traces one
+warm batch (table in PATH) and one encoder forward (table in
+PATH_encoder).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -48,13 +68,22 @@ RECALL_MIN = 0.99
 ROWS_AGREE_MIN = 0.999
 STEP_TOL = 1e-4        # GPU vs CPU fused-step scores (f32, other sum order)
 KERNEL_TOL = 1e-5      # kernel vs plain scores (f32 sums of bf16 products)
+LN_TOL = 1e-5          # residual_ln kernel vs plain (f32, other sum order)
+ATTN_TOL = 1e-2        # flash_attn vs plain for |v| <= 1 (bf16 weights)
+ENC_COS_MIN = 0.9999   # encoder rows: slice vs default config, card vs CPU
+MODEL_NAME = "intfloat/multilingual-e5-base"
+ENC_CHUNKS = 8192      # passages the encoder phases ingest
+N_LONG = 32            # long texts (> 256 tokens: bucket 512)
+N_QUESTIONS = 256
+CPU_SUBSET = (16, 8, 4)  # queries, passages, long texts the CPU copy encodes
 
-# Published dense peaks (NVIDIA data sheets): memory bytes/s, bf16 FLOP/s.
+# Published dense peaks (NVIDIA data sheets): memory bytes/s, bf16
+# tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
 PEAKS = {
-    "H100 PCIe": (2.0e12, 756e12),
-    "H100 NVL": (3.9e12, 835e12),
-    "H100": (3.35e12, 989e12),      # SXM5, 80 GB HBM3
-    "H200": (4.8e12, 989e12),
+    "H100 PCIe": (2.0e12, 756e12, 51e12),
+    "H100 NVL": (3.9e12, 835e12, 60e12),
+    "H100": (3.35e12, 989e12, 67e12),      # SXM5, 80 GB HBM3
+    "H200": (4.8e12, 989e12, 67e12),
 }
 
 
@@ -304,24 +333,145 @@ def kernel_phase(ttopk, store, q_dev, peaks):
     nq = q_dev.shape[0]
     bytes_moved = n * d * 2 + nq * d * 4 + n * 4 + nq * sel * 8
     flops = 2.0 * nq * n * d
-    bw, peak = peaks
+    return kernel_row(
+        "topk_scan", "topk_scan.cu", "classmate_rag_tpu/ops/topk.py:170",
+        {"N": n, "d": d, "Q": nq, "k": sel}, max(errs), ms, plain_ms,
+        library_ms, bytes_moved, flops, peaks[0], peaks[1])
+
+
+def kernel_row(name, source, replaces, shape, err, ms, plain_ms, library_ms,
+               bytes_moved, ops, bw, op_peak):
+    """One kernel's numbers; the bound is the larger of bytes over the
+    memory rate and operations over the peak rate of their type."""
     t_bytes = bytes_moved / bw * 1e3
-    t_ops = flops / peak * 1e3
+    t_ops = ops / op_peak * 1e3
     return {
-        "name": "topk_scan",
+        "name": name,
         "route": "cuda",
-        "source": "classmate_rag_tpu_torch/ops/csrc/topk_scan.cu",
-        "replaces": "classmate_rag_tpu/ops/topk.py:170",
-        "shape": {"N": n, "d": d, "Q": nq, "k": sel},
-        "max_abs_err": max(errs),
+        "source": f"classmate_rag_tpu_torch/ops/csrc/{source}",
+        "replaces": replaces,
+        "shape": shape,
+        "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
         "library_ms": library_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": bytes_moved,
-        "flops": flops,
+        "flops": ops,
     }
+
+
+def bf16_spacing(x: torch.Tensor) -> torch.Tensor:
+    """Spacing of bf16 values at |x| (8 significant bits)."""
+    _m, e = torch.frexp(x)
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def epilogue_kernels(tef, peaks):
+    """bias_gelu and residual_ln at the encoder's shapes (B·T = 16,384
+    tokens of E5-base) and at ragged ones."""
+    import torch.nn.functional as F
+
+    bw, _bf16_peak, f32_peak = peaks
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def normal(*shape, std=1.0, mean=0.0):
+        return torch.randn(*shape, device="cuda", generator=g) * std + mean
+
+    n, f, h = 16384, 3072, 768
+    err = 0.0
+    for rows, cols in ((n, f), (1021, f), (7, 24)):
+        y, b = normal(rows, cols, std=2.0), normal(cols, std=0.5)
+        got, want = tef.bias_gelu(y, b), tef.bias_gelu_reference(y, b)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        check(bool((diff <= bf16_spacing(want.float())).all()),
+              f"bias_gelu [{rows}, {cols}]: beyond 1 bf16 spacing")
+        err = max(err, diff.max().item())
+    y, b = normal(n, f, std=2.0), normal(f, std=0.5)
+    gelu = kernel_row(
+        "bias_gelu", "bias_gelu.cu",
+        "classmate_rag_tpu/ops/encoder_fused.py:104", {"N": n, "F": f}, err,
+        time_ms(lambda: tef.bias_gelu(y, b)),
+        time_ms(lambda: tef.bias_gelu_reference(y, b)),
+        time_ms(lambda: F.gelu(y + b).to(torch.bfloat16)),
+        n * f * (4 + 2) + 4 * f,
+        5.0 * n * f,          # add, 3 multiplies, erfc counted as one
+        bw, f32_peak)
+
+    err = 0.0
+    for rows in (n, 77):
+        args = (normal(rows, h), normal(rows, h), normal(h, std=0.1),
+                normal(h, std=0.1, mean=1.0), normal(h, std=0.1))
+        got = tef.residual_ln(*args, eps=1e-5)
+        want = tef.residual_ln_reference(*args, eps=1e-5)
+        torch.cuda.synchronize()
+        err = max(err, (got - want).abs().max().item())
+    check(err <= LN_TOL, f"residual_ln: max |d| {err} > {LN_TOL}")
+    resid, y, b, gg, beta = args = (
+        normal(n, h), normal(n, h), normal(h, std=0.1),
+        normal(h, std=0.1, mean=1.0), normal(h, std=0.1))
+    ln = kernel_row(
+        "residual_ln", "residual_ln.cu",
+        "classmate_rag_tpu/ops/encoder_fused.py:145", {"N": n, "H": h}, err,
+        time_ms(lambda: tef.residual_ln(*args, eps=1e-5)),
+        time_ms(lambda: tef.residual_ln_reference(*args, eps=1e-5)),
+        time_ms(lambda: F.layer_norm(resid + y + b, (h,), gg, beta, 1e-5)),
+        3 * n * h * 4 + 3 * h * 4,
+        10.0 * n * h,         # 2 adds, 2 reduction passes, normalise
+        bw, f32_peak)
+    return gelu, ln
+
+
+def flash_kernel(tatt, peaks):
+    """flash_attn at the encoder's (B, T) of buckets 512 and 128, with
+    per-row lengths from 1 to T and rows whose last key tiles are all
+    padding; returns the (B = 128, T = 128) row (the bucket the passage
+    ingest runs most) and both shapes' numbers."""
+    import torch.nn.functional as F
+
+    bw, bf16_peak, _f32 = peaks
+    nh, hd = 12, 64
+    rng = np.random.default_rng(12)
+    rows = {}
+    for b, t in ((32, 512), (128, 128)):
+        qkv = rng.normal(0, 1.0, (b, t, 3, nh, hd)).astype(np.float32)
+        qkv[:, :, 2] = rng.uniform(-1, 1, (b, t, nh, hd))
+        qkv = torch.from_numpy(qkv).to(torch.bfloat16).cuda()
+        q, k, v = qkv.unbind(2)
+        lengths = rng.integers(1, t + 1, b)
+        lengths[:3] = (40, t, 1)   # row 0: the last key tiles all padding
+        mask = torch.from_numpy(
+            (np.arange(t)[None, :] < lengths[:, None]).astype(np.int32)
+        ).cuda()
+        got = tatt.flash_attention(q, k, v, mask, 0.125)
+        want = tatt.attention_reference(q, k, v, mask, 0.125)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got.float()).all()),
+              f"flash_attn B={b} T={t}: non-finite rows")
+        err = (got.float() - want.float()).abs().max().item()
+        check(err <= ATTN_TOL, f"flash_attn B={b} T={t}: max |d| {err}")
+        keep = mask.bool()[:, None, None, :]
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        real = int(lengths.sum())
+        h = nh * hd
+        rows[(b, t)] = kernel_row(
+            "flash_attn", "flash_attn.cu",
+            "classmate_rag_tpu/embeddings/model.py:272",
+            {"B": b, "T": t, "heads": nh, "head_dim": hd,
+             "real_keys": real}, err,
+            time_ms(lambda: tatt.flash_attention(q, k, v, mask, 0.125)),
+            time_ms(lambda: tatt.attention_reference(q, k, v, mask, 0.125)),
+            time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=keep)),
+            # q read and out written for every row; k and v only where
+            # a key is real (the rest weighs exactly 0); the mask.
+            2 * b * t * h * 2 + 2 * real * h * 2 + b * t * 4,
+            # QK^T and PV over the real keys of every query row.
+            4.0 * nh * hd * t * real,
+            bw, bf16_peak)
+    return rows[(128, 128)], list(rows.values())
 
 
 def step_on_cpu(step, store, q, terms, **knobs):
@@ -350,10 +500,11 @@ def compare_steps(gpu, cpu):
     return int(agree.sum()), worst
 
 
-def profile_batch(fn, path: str, wall_ms: float) -> dict:
-    """Device time by op for one warm batch, and the device's idle share
-    of the batch's unprofiled wall time ``wall_ms`` (kernel times summed:
-    one stream, so kernels do not overlap)."""
+def profile_batch(fn, path: str, wall_ms: float,
+                  phase: str = "profile") -> dict:
+    """Device time by op for one warm run of ``fn`` (a batch, a forward),
+    and the device's idle share of its unprofiled wall time ``wall_ms``
+    (kernel times summed: one stream, so kernels do not overlap)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):   # the first trace pays the tracer's start-up
@@ -368,26 +519,331 @@ def profile_batch(fn, path: str, wall_ms: float) -> dict:
     cuda = torch.autograd.DeviceType.CUDA
     busy_ms = sum(e.self_device_time_total for e in events
                   if e.device_type == cuda) / 1e3
-    ops = [e for e in events
-           if e.device_type != cuda and e.self_device_time_total > 0]
-    top = sorted(ops, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:12]
+    def top(keep):
+        rows = [e for e in events
+                if keep(e) and e.self_device_time_total > 0]
+        return sorted(rows, key=lambda e: e.self_device_time_total,
+                      reverse=True)[:12]
+
     return {
-        "phase": "profile", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "phase": phase, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "top_ops": [{"op": e.key, "self_device_ms":
                      e.self_device_time_total / 1e3, "count": e.count}
-                    for e in top],
+                    for e in top(lambda e: e.device_type != cuda)],
+        # Kernels by name: the port's own (launched through ctypes, with
+        # no aten op above them) show only here.
+        "top_kernels": [{"kernel": e.key[:60], "device_ms":
+                         e.self_device_time_total / 1e3, "count": e.count}
+                        for e in top(lambda e: e.device_type == cuda)],
     }
+
+
+# ---------------------------------------------------------------------------
+# The encoder path
+# ---------------------------------------------------------------------------
+
+class Counts:
+    """Every kernel's launch count, set to 0 and read around a run."""
+
+    def __init__(self, *modules):
+        self.tables = [m.LAUNCHES for m in modules]
+
+    def reset(self) -> None:
+        for table in self.tables:
+            for name in table:
+                table[name] = 0
+
+    def read(self) -> dict:
+        return {k: v for table in self.tables for k, v in table.items()}
+
+
+def encoder_texts(rng, docs):
+    """Passages (E5 buckets 64 and 128), long texts (> 256 tokens, bucket
+    512) and questions (5 words of a passage, bucket 32)."""
+    passages = [" ".join(d) for d in docs[:ENC_CHUNKS]]
+    longs = []
+    for i in range(N_LONG):
+        words, j = [], i * 16
+        while len(words) < 320:
+            words += docs[j]
+            j += 1
+        longs.append(" ".join(words))
+    src = rng.integers(0, ENC_CHUNKS, N_QUESTIONS)
+    questions = [" ".join(rng.choice(docs[i], size=5, replace=False))
+                 for i in src]
+    return passages, longs, questions
+
+
+def row_cos(a: np.ndarray, b: np.ndarray) -> float:
+    """Least per-row cosine of two row-normalised matrices."""
+    return float((a * b).sum(axis=1).min())
+
+
+def encode_all(enc, sets):
+    """Encode each named set on the card; (vectors, seconds, forward
+    shapes) with the card synchronised at the end of each set."""
+    shapes = []
+    orig = enc._dispatch_bucket
+
+    def record(ids, mask):
+        shapes.append(ids.shape)
+        return orig(ids, mask)
+
+    enc._dispatch_bucket = record
+    vecs, secs = {}, {}
+    try:
+        for name, (texts, fn) in sets.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = getattr(enc, fn)(texts)
+            vecs[name] = (out.cpu().numpy() if isinstance(out, torch.Tensor)
+                          else out)
+            secs[name] = time.perf_counter() - t0
+    finally:
+        del enc._dispatch_bucket
+    return vecs, secs, shapes
+
+
+def encoder_phase(rng, docs, counts, peaks, profile_path):
+    """E5-base at full width with the slice configuration and the
+    default one, on the card, and the slice configuration on the CPU."""
+    from classmate_rag_tpu_torch.embeddings.encoder import E5Encoder
+    from classmate_rag_tpu_torch.embeddings.model import (
+        EncoderConfig,
+        encoder_flops,
+        init_params,
+    )
+
+    t0 = time.perf_counter()
+    base = EncoderConfig.base()
+    slice_cfg = dataclasses.replace(base, fused_epilogue=True,
+                                    flash_min_seq=128)
+    tree = init_params(base, MODEL_NAME)
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    enc = E5Encoder(model_name=MODEL_NAME, config=slice_cfg, params=tree)
+    enc_default = E5Encoder(model_name=MODEL_NAME, config=base, params=tree)
+    torch.cuda.synchronize()
+    t_upload = time.perf_counter() - t0
+    passages, longs, questions = encoder_texts(rng, docs)
+    sets = {"passages": (passages, "encode_passages"),
+            "long": (longs, "encode_passages"),
+            "queries": (questions, "encode_queries_device")}
+
+    # The main path: every count 0 just before, read just after.
+    counts.reset()
+    vecs, secs, shapes = encode_all(enc, sets)
+    launches = counts.read()
+    n_fwd = len(shapes)
+    n_flash = sum(1 for _b, t in shapes
+                  if t >= slice_cfg.flash_min_seq and t % 128 == 0)
+    n_layers = slice_cfg.layers      # 12: 12 / 24 / 12 a forward
+    want = {"bias_gelu": n_layers * n_fwd, "residual_ln": 2 * n_layers * n_fwd,
+            "flash_attn": n_layers * n_flash, "topk_scan": 0}
+    check(launches == want, f"encoder launches {launches} != {want}")
+    check(n_flash > 0 and n_flash < n_fwd, "expected flash and non-flash "
+          f"buckets, got {sorted(set(t for _b, t in shapes))}")
+
+    counts.reset()
+    vecs_default, secs_default, _ = encode_all(enc_default, sets)
+    default_launches = counts.read()
+    check(not any(default_launches.values()),
+          f"the default configuration launched {default_launches}")
+    cos_configs = {}
+    for name, v in vecs.items():
+        check(v.shape == (len(sets[name][0]), DIM)
+              and bool(np.isfinite(v).all()), f"encoder {name}: bad output")
+        cos_configs[name] = row_cos(v, vecs_default[name])
+        check(cos_configs[name] >= ENC_COS_MIN,
+              f"encoder {name}: slice vs default cosine {cos_configs[name]}")
+
+    t0 = time.perf_counter()
+    enc_cpu = E5Encoder(model_name=MODEL_NAME, config=slice_cfg,
+                        params=tree, device="cpu")
+    nq, npas, nlong = CPU_SUBSET
+    cos_cpu = {
+        "queries": row_cos(enc_cpu.encode_queries(questions[:nq]),
+                           vecs["queries"][:nq]),
+        "passages": row_cos(enc_cpu.encode_passages(passages[:npas]),
+                            vecs["passages"][:npas]),
+        "long": row_cos(enc_cpu.encode_passages(longs[:nlong]),
+                        vecs["long"][:nlong]),
+    }
+    t_cpu = time.perf_counter() - t0
+    del enc_cpu
+    for name, c in cos_cpu.items():
+        check(c >= ENC_COS_MIN, f"encoder {name}: card vs CPU cosine {c}")
+
+    # One forward per bucket at its full batch, both configurations.
+    by_bucket = {}
+    for t in (32, 64, 128, 256, 512):
+        b = max(8, 16384 // t)
+        ids = torch.randint(4, base.vocab_size, (b, t), device=enc.device,
+                            dtype=torch.int32)
+        ids[:, 0] = 0
+        mask = torch.ones_like(ids)
+        row = {"batch": b}
+        for name, e in (("slice", enc), ("default", enc_default)):
+            with torch.no_grad():
+                ms = time_ms(lambda: e.model(ids, mask), reps=5, warmup=2)
+            row[f"{name}_ms"] = ms
+            row[f"{name}_tokens_per_s"] = b * t / (ms / 1e3)
+            row[f"{name}_bf16_peak_share"] = (
+                encoder_flops(base, b, t) / (ms / 1e3) / peaks[1])
+        by_bucket[t] = row
+
+    total_s = sum(secs.values())
+    real_tokens = sum(len(enc.tokenizer.encode(x, enc.max_length))
+                      for texts in (passages, longs) for x in texts)
+    line = {
+        "phase": "encoder", "model": MODEL_NAME, "layers": base.layers,
+        "hidden": base.hidden, "heads": base.heads,
+        "vocab": base.vocab_size,
+        "texts": {k: len(v[0]) for k, v in sets.items()},
+        "forwards": n_fwd, "flash_forwards": n_flash,
+        "buckets": sorted({t for _b, t in shapes}),
+        "launches": launches, "default_launches": default_launches,
+        "cos_slice_vs_default": cos_configs, "cos_card_vs_cpu": cos_cpu,
+        "encode_s": secs, "encode_s_default": secs_default,
+        "padded_tokens_per_s": sum(b * t for b, t in shapes) / total_s,
+        "passage_tokens_per_s": real_tokens / (secs["passages"]
+                                               + secs["long"]),
+        "bf16_peak_share": enc.last_flops / total_s / peaks[1],
+        "by_bucket": by_bucket,
+        "setup_s": {"init_params": t_init, "upload_two": t_upload,
+                    "cpu_copy": t_cpu},
+    }
+    emit(line)
+    if profile_path:
+        path = Path(profile_path)
+        path = path.with_name(f"{path.stem}_encoder{path.suffix}")
+        ids = torch.randint(4, base.vocab_size, (128, 128),
+                            device=enc.device, dtype=torch.int32)
+        mask = torch.ones_like(ids)
+
+        def forward():
+            with torch.no_grad():
+                enc.model(ids, mask)
+
+        emit(profile_batch(forward, str(path), by_bucket[128]["slice_ms"],
+                           phase="profile_encoder"))
+    return enc, launches
+
+
+def ingest_ask_phase(enc, docs, rng, counts, knobs):
+    """Ingest E5 passage vectors, then answer questions through the
+    retriever with the encoder's query tensor handed over on the card."""
+    from classmate_rag_tpu_torch.embeddings.cache import CachingEmbedder
+    from classmate_rag_tpu_torch.index.catalog import Catalog, CatalogEntry
+    from classmate_rag_tpu_torch.index.lexical import tokenize_py
+    from classmate_rag_tpu_torch.index.store import IndexStore
+    from classmate_rag_tpu_torch.retrieval.hybrid import HybridRetriever
+    from classmate_rag_tpu_torch.utils.lang import detect_lang_tag
+
+    texts, _longs, questions = encoder_texts(rng, docs)
+    ids = [f"e{i}" for i in range(ENC_CHUNKS)]
+    with tempfile.TemporaryDirectory() as cache_dir:
+        cached = CachingEmbedder(enc, cache_dir=cache_dir)
+        store = IndexStore(DIM, slab_rows=4096, terms_per_chunk=128)
+        catalog = Catalog()
+        for i, cid in enumerate(ids):
+            catalog.upsert(CatalogEntry(cid, texts[i], docs[i],
+                                        chunk_meta(i)))
+        ret = HybridRetriever(store, catalog, cached)
+        seen = []
+        step = store.hybrid_topk_batch
+
+        def spy(q, *a, **kw):
+            seen.append(q.device.type if isinstance(q, torch.Tensor)
+                        else type(q).__name__)
+            return step(q, *a, **kw)
+
+        store.hybrid_topk_batch = spy
+
+        # The main path: every count 0 just before, read just after.
+        counts.reset()
+        t0 = time.perf_counter()
+        vecs = cached.encode_passages(texts)
+        t_encode = time.perf_counter() - t0
+        store.upsert(ids, vecs, [docs[i] for i in range(ENC_CHUNKS)],
+                     [chunk_meta(i) for i in range(ENC_CHUNKS)])
+        t_ingest = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = ret.retrieve_batch(questions=questions)
+        t_first = time.perf_counter() - t0
+        launches = counts.read()
+        for name, n in launches.items():
+            check(n > 0, f"ingest+ask: {name} was not launched")
+        check(seen == ["cuda"], f"the query tensor reached the store as "
+              f"{seen}, not on the card")
+
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            again = ret.retrieve_batch(questions=questions)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        check([[x["id"] for x in r] for r in again]
+              == [[x["id"] for x in r] for r in got], "ask is not stable")
+
+        def encode():
+            q = cached.encode_queries_device(questions)
+            torch.cuda.synchronize()
+            return q
+
+        encode_ms, q_dev = [], None
+        for _ in range(3):
+            t0 = time.perf_counter()
+            q_dev = encode()
+            encode_ms.append((time.perf_counter() - t0) * 1e3)
+        terms = [tokenize_py(q, detect_lang_tag(q)) for q in questions]
+        step_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            step(q_dev, terms, None, **knobs).rows.cpu()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+
+        host = dataclasses.replace(ret, use_device_encode=False)
+        want = host.retrieve_batch(questions=questions)
+        check(seen[-1] == "ndarray", "host path did not take the host")
+        check([[x["id"] for x in r] for r in want]
+              == [[x["id"] for x in r] for r in got],
+              "device handoff ids differ from the host-encode path's")
+        cache_files = sum(1 for _ in Path(cache_dir).rglob("*.npy"))
+        del store.hybrid_topk_batch
+
+    bm25 = OracleBM25(docs[:ENC_CHUNKS])
+    qv = q_dev.cpu().numpy()
+    sims = vecs @ qv.T
+    overlaps = []
+    for j, q in enumerate(questions):
+        oracle = set(oracle_query(qv[j], terms[j], vecs, bm25, sims[:, j]))
+        have = {int(x["id"][1:]) for x in got[j]}
+        overlaps.append(len(have & oracle) / max(len(oracle), 1))
+    recall = float(np.mean(overlaps))
+    check(recall >= RECALL_MIN, f"ingest+ask recall@8 {recall}")
+    emit({"phase": "ingest_ask", "chunks": ENC_CHUNKS,
+          "questions": N_QUESTIONS, "launches": launches,
+          "query_tensor_at_store": seen[0], "ids_equal_host_path": True,
+          "recall_at_8": recall, "n_oracle": N_QUESTIONS,
+          "encode_ms": statistics.median(encode_ms),
+          "step_ms": statistics.median(step_ms),
+          "warm_batch_ms": statistics.median(walls),
+          "batch_wall_ms": walls, "first_ask_s": t_first,
+          "ingest_s": {"encode": t_encode, "encode_and_upsert": t_ingest},
+          "cache_files": cache_files})
+    return launches
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--profile", metavar="PATH",
-                    help="also trace one warm batch with torch.profiler, "
-                         "print a 'profile' phase line and write the "
-                         "per-op table to PATH")
+                    help="also trace one warm batch and one encoder "
+                         "forward (slice configuration, bucket 128) with "
+                         "torch.profiler, print 'profile' and "
+                         "'profile_encoder' phase lines and write the "
+                         "per-op tables to PATH and PATH_encoder")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -399,6 +855,8 @@ def main() -> int:
     from classmate_rag_tpu_torch.index.catalog import Catalog, CatalogEntry
     from classmate_rag_tpu_torch.index.store import IndexStore
     from classmate_rag_tpu_torch.ops import _build
+    from classmate_rag_tpu_torch.ops import attention as tatt
+    from classmate_rag_tpu_torch.ops import encoder_fused as tef
     from classmate_rag_tpu_torch.ops import topk as ttopk
     from classmate_rag_tpu_torch.ops.hybrid_step import (
         hybrid_query_step_split,
@@ -454,11 +912,13 @@ def main() -> int:
     # ---- 2. kernels ----------------------------------------------------
     q0 = torch.from_numpy(np.stack([qv for qv, _t in batches[0]])).cuda()
     kern = kernel_phase(ttopk, store, q0, peaks)
-    emit({"phase": "kernels", "kernels": [kern]})
+    gelu, ln = epilogue_kernels(tef, peaks)
+    flash, flash_rows = flash_kernel(tatt, peaks)
+    emit({"phase": "kernels", "kernels": [kern, gelu, ln, *flash_rows]})
+    counts = Counts(ttopk, tef, tatt)
 
     # ---- 3. slice: the main path -----------------------------------------
-    for name in ttopk.LAUNCHES:
-        ttopk.LAUNCHES[name] = 0
+    counts.reset()
     outs, walls, events = [], [], []
     for batch in batches:
         start = torch.cuda.Event(enable_timing=True)
@@ -472,7 +932,7 @@ def main() -> int:
         walls.append((time.perf_counter() - t0) * 1e3)
         events.append(start.elapsed_time(end))
         outs.append((out, rows))
-    launches = dict(ttopk.LAUNCHES)
+    launches = counts.read()
     check(launches["topk_scan"] == len(batches),
           f"topk_scan launches {launches['topk_scan']} != {len(batches)}")
 
@@ -528,11 +988,10 @@ def main() -> int:
     batch = batches[1]
     q = np.stack([qv for qv, _t in batch])
     terms = [t for _q, t in batch]
-    for name in ttopk.LAUNCHES:
-        ttopk.LAUNCHES[name] = 0
+    counts.reset()
     out = run_batch(batch)
     out.rows.cpu()
-    approx_launches = dict(ttopk.LAUNCHES)
+    approx_launches = counts.read()
     check(approx_launches["topk_scan"] == 1, "approx: scan not launched")
     cpu = step_on_cpu(hybrid_query_step_split, store, q, terms, **knobs)
     n_agree, diff = compare_steps(out, cpu)
@@ -586,11 +1045,20 @@ def main() -> int:
           "results": sum(len(g) for g in got), "bm25_hits": n_bm25,
           "filter": {"course": course}})
 
-    kern_line = dict(kern)
-    kern_line["launches"] = launches["topk_scan"]
-    emit({"kernels": [{k: kern_line[k] for k in (
-        "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}]})
+    # ---- 6. encoder, 7. ingest + ask --------------------------------------
+    enc, enc_launches = encoder_phase(rng, docs, counts, peaks, args.profile)
+    ingest_ask_phase(enc, docs, rng, counts, knobs)
+
+    line = []
+    for row, n in ((kern, launches["topk_scan"]),
+                   (gelu, enc_launches["bias_gelu"]),
+                   (ln, enc_launches["residual_ln"]),
+                   (flash, enc_launches["flash_attn"])):
+        row = {**row, "launches": n}
+        line.append({k: row[k] for k in (
+            "name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

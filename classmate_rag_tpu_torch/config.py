@@ -1,6 +1,7 @@
-"""Retrieval knobs of the port, with the JAX package's environment names
-and defaults (the subset of ``classmate_rag_tpu/config.py`` that the
-hybrid query reads)."""
+"""Retrieval and embedding knobs of the port, with the JAX package's
+environment names and defaults (the subset of
+``classmate_rag_tpu/config.py`` that the hybrid query and the embedder
+read)."""
 
 from __future__ import annotations
 
@@ -55,6 +56,53 @@ def _parse(raw: str, default):
         return type(default)(raw)
     except ValueError:
         return default
+
+
+@dataclass(frozen=True)
+class EmbeddingConfig:
+    embedding_model_name: str = "intfloat/multilingual-e5-base"
+    # "auto": E5 with real weights when a local snapshot exists, else the
+    # hashing embedder; "e5": the transformer (random init without
+    # weights); "hash": the hashing embedder.
+    embedding_backend: str = "auto"
+    embedding_model_dir: Optional[str] = None
+    # Loading a training checkpoint is not ported yet (get_embedder
+    # raises when it is set).
+    encoder_checkpoint: Optional[str] = None
+    emb_cache_dir: str = "./indexes/emb_cache"
+    # 0 = every local card, 1 = off, n = at most n (the encoder raises
+    # where that means more than one card).
+    encode_data_parallel: int = 0
+
+
+EMBEDDING_ENV_NAMES = {
+    "embedding_model_name": "EMBEDDING_MODEL_NAME",
+    "embedding_backend": "EMBEDDING_BACKEND",
+    "embedding_model_dir": "EMBEDDING_MODEL_DIR",
+    "encoder_checkpoint": "ENCODER_CHECKPOINT",
+    "emb_cache_dir": "EMB_CACHE_DIR",
+    "encode_data_parallel": "ENCODE_DATA_PARALLEL",
+}
+
+
+def load_embedding_config(
+    env: Optional[Mapping[str, str]] = None,
+) -> EmbeddingConfig:
+    """Read the embedding knobs from ``env`` (default ``os.environ``);
+    unset or empty variables keep their defaults."""
+    env = os.environ if env is None else env
+    base = EmbeddingConfig()
+    values = {}
+    for name, var in EMBEDDING_ENV_NAMES.items():
+        raw = env.get(var)
+        default = getattr(base, name)
+        if not raw:
+            values[name] = default
+        elif isinstance(default, int):
+            values[name] = _parse(raw, default)
+        else:
+            values[name] = raw
+    return EmbeddingConfig(**values)
 
 
 def load_retrieval_config(

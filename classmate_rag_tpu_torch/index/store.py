@@ -564,6 +564,9 @@ class IndexStore:
     # ------------------------------------------------------------------
 
     def _queries(self, query_vecs) -> torch.Tensor:
+        """[Q, d] f32 on the store's device. A contiguous f32 tensor
+        already there (the encoder's device output) is used as it is,
+        with no copy through the host."""
         return torch.as_tensor(
             query_vecs, dtype=torch.float32
         ).to(self.device).contiguous()

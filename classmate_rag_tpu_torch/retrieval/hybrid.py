@@ -10,6 +10,9 @@
 
 Every question goes through the store's fused batch step; strings
 materialize only at the end. ``hybrid=False`` gives the dense-only path.
+When the embedder can encode on the device (``encode_queries_device``,
+the E5 encoder), the query vectors go from the encoder's output into the
+fused step without a host fetch.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
+import torch
 
 from classmate_rag_tpu_torch.index.catalog import Catalog
 from classmate_rag_tpu_torch.index.lexical import tokenize_py
@@ -39,6 +43,9 @@ class HybridRetriever:
     use_mmr: bool = True
     mmr_lambda: float = 0.5
     mmr_max_pool: int = 24
+    # Device-resident encode → retrieve handoff; False forces the
+    # (cached) host encode path.
+    use_device_encode: bool = True
 
     def retrieve(
         self,
@@ -86,9 +93,16 @@ class HybridRetriever:
         if not live:
             return out
 
-        q_vecs = self.embedder.encode_queries(
-            [q for _i, q in live]
-        ).astype(np.float32)
+        encode_device = (
+            getattr(self.embedder, "encode_queries_device", None)
+            if self.use_device_encode else None
+        )
+        if encode_device is not None:
+            q_vecs = encode_device([q for _i, q in live])
+        else:
+            q_vecs = self.embedder.encode_queries(
+                [q for _i, q in live]
+            ).astype(np.float32)
         q_terms = [
             tokenize_py(q, detect_lang_tag(q)) if hybrid else []
             for _i, q in live
@@ -99,10 +113,14 @@ class HybridRetriever:
         n_live = len(live)
         b_pad = 1 << (n_live - 1).bit_length() if n_live > 1 else 1
         if b_pad > n_live:
-            q_vecs = np.concatenate([
-                q_vecs,
-                np.zeros((b_pad - n_live, q_vecs.shape[1]), np.float32),
-            ])
+            if isinstance(q_vecs, torch.Tensor):   # stays on its device
+                q_vecs = torch.cat([q_vecs, q_vecs.new_zeros(
+                    (b_pad - n_live, q_vecs.shape[1]))])
+            else:
+                q_vecs = np.concatenate([
+                    q_vecs,
+                    np.zeros((b_pad - n_live, q_vecs.shape[1]), np.float32),
+                ])
             q_terms = q_terms + [[] for _ in range(b_pad - n_live)]
         # Dense-only widens k_vector to top_k; empty term lists disable
         # the bm25 branch via has_terms.

@@ -4,16 +4,28 @@ Imports neither JAX nor the JAX package, so it runs on a GPU machine
 without them: ``python -m pytest tests/test_torch_kernels.py -m cuda``.
 Without a CUDA card every case skips.
 
-Tolerance: the kernel and the plain version both sum bf16 products in
-f32, in different orders, so scores agree to 1e-5 (unit-norm rows);
-rows must be equal except at positions whose two neighbouring scores
-lie within 1e-5, where a different summation order may swap them.
+Tolerances:
+- topk_scan: the kernel and the plain version both sum bf16 products in
+  f32, in different orders, so scores agree to 1e-5 (unit-norm rows);
+  rows must be equal except at positions whose two neighbouring scores
+  lie within 1e-5, where a different summation order may swap them.
+- bias_gelu: ≤ 1 bf16 spacing (both round the same f32 GELU to bf16;
+  the erfc evaluations may differ in the last f32 bit and so land on
+  either side of a rounding boundary).
+- residual_ln: ≤ 1e-5 (f32, other summation orders).
+- flash_attn: max |Δ| ≤ 1e-2 for |v| ≤ 1 (the kernel rounds the
+  unnormalised probabilities to bf16, the plain version the normalised
+  ones: each weight differs by up to 2^-9 relative), and every row,
+  pad-query rows included, finite.
+- the encoder on the card vs on the CPU: per-row cosine ≥ 0.9999.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from classmate_rag_tpu_torch.ops import attention as tatt
+from classmate_rag_tpu_torch.ops import encoder_fused as tef
 from classmate_rag_tpu_torch.ops import topk as ttopk
 from classmate_rag_tpu_torch.utils.numerics import NEG_INF
 
@@ -27,7 +39,7 @@ def _rand(n, d, seed=0):
 @pytest.fixture()
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the scan is a CUDA kernel")
+        pytest.skip("needs a CUDA card: these are CUDA kernels")
     return torch.device("cuda")
 
 
@@ -87,3 +99,119 @@ def test_topk_scan_rejects_wrong_inputs(cuda):
     with pytest.raises(ValueError):
         ttopk.masked_topk(Eb, torch.zeros((2, 16), device=cuda),
                           torch.zeros(64, device=cuda), 4)
+
+
+def _bf16_ulp(x):
+    _, e = np.frexp(x)
+    return np.ldexp(1.0, e - 8).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,f", [(1000, 3072), (77, 3072), (8, 128),
+                                 (5, 24)])
+def test_bias_gelu_matches_plain(cuda, n, f):
+    rng = np.random.default_rng(n)
+    y = torch.from_numpy(rng.normal(0, 2.0, (n, f)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(0, 0.5, f).astype(np.float32))
+    y, b = y.to(cuda), b.to(cuda)
+    before = tef.LAUNCHES["bias_gelu"]
+    got = tef.bias_gelu(y, b)
+    want = tef.bias_gelu_reference(y, b)
+    torch.cuda.synchronize()
+    assert tef.LAUNCHES["bias_gelu"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (n, f)
+    g, w = got.float().cpu().numpy(), want.float().cpu().numpy()
+    assert np.all(np.abs(g - w) <= _bf16_ulp(w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h", [(16384, 768), (3, 1024), (9, 128)])
+def test_residual_ln_matches_plain(cuda, n, h):
+    rng = np.random.default_rng(h)
+    resid, y = (rng.normal(0, 1.0, (n, h)).astype(np.float32)
+                for _ in range(2))
+    b, beta = (rng.normal(0, 0.1, h).astype(np.float32) for _ in range(2))
+    g = rng.normal(1, 0.1, h).astype(np.float32)
+    t = [torch.from_numpy(a).to(cuda) for a in (resid, y, b, g, beta)]
+    before = tef.LAUNCHES["residual_ln"]
+    got = tef.residual_ln(*t, eps=1e-5)
+    want = tef.residual_ln_reference(*t, eps=1e-5)
+    torch.cuda.synchronize()
+    assert tef.LAUNCHES["residual_ln"] == before + 1
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,lengths", [
+    (512, [40, 512, 1, 300]),      # 7 of 8 key tiles all padding in row 0
+    (128, [128, 1, 64, 65, 100, 2, 127, 128]),
+    (100, [100, 3]),               # T not a multiple of the key tile
+])
+def test_flash_attn_matches_plain(cuda, t, lengths):
+    rng = np.random.default_rng(t)
+    b, nh, hd = len(lengths), 12, 64
+    qkv = rng.normal(0, 1.0, (b, t, 3, nh, hd)).astype(np.float32)
+    qkv[:, :, 2] = rng.uniform(-1, 1, (b, t, nh, hd))
+    qkv = torch.from_numpy(qkv).to(torch.bfloat16).to(cuda)
+    q, k, v = qkv.unbind(2)            # the encoder's strided views
+    mask = torch.from_numpy(
+        (np.arange(t)[None, :] < np.asarray(lengths)[:, None])
+        .astype(np.int32)).to(cuda)
+    before = tatt.LAUNCHES["flash_attn"]
+    got = tatt.flash_attention(q, k, v, mask, 0.125)
+    want = tatt.attention_reference(q, k, v, mask, 0.125)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES["flash_attn"] == before + 1
+    assert got.shape == (b, t, nh * hd) and got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got.float()).all())
+    assert (got.float() - want.float()).abs().max().item() <= 1e-2
+
+
+@pytest.mark.cuda
+def test_encoder_kernels_reject_wrong_inputs(cuda):
+    x = torch.zeros((2, 8, 2, 32), dtype=torch.bfloat16, device=cuda)
+    m = torch.ones((2, 8), device=cuda)
+    with pytest.raises(ValueError):               # head_dim 32
+        tatt.flash_attention(x, x, x, m, 0.2)
+    x = torch.zeros((2, 8, 2, 64), device=cuda)   # f32
+    with pytest.raises(TypeError):
+        tatt.flash_attention(x, x, x, m, 0.125)
+    with pytest.raises(TypeError):
+        tef.bias_gelu(torch.zeros((4, 8), dtype=torch.float16, device=cuda),
+                      torch.zeros(8, dtype=torch.float16, device=cuda))
+    with pytest.raises(ValueError):               # width 13
+        tef.bias_gelu(torch.zeros((4, 13), device=cuda),
+                      torch.zeros(13, device=cuda))
+    with pytest.raises(ValueError):               # width 96
+        v = torch.zeros(96, device=cuda)
+        tef.residual_ln(torch.zeros((4, 96), device=cuda),
+                        torch.zeros((4, 96), device=cuda), v, v, v, 1e-5)
+
+
+@pytest.mark.cuda
+def test_encoder_on_card_matches_cpu(cuda):
+    """Two layers at the E5-base width through every kernel: the fused
+    epilogues and flash attention (T = 128) on the card vs the plain
+    versions on the CPU, and the launch counts of one forward."""
+    import dataclasses
+
+    from classmate_rag_tpu_torch.embeddings import model as tm
+
+    cfg = dataclasses.replace(tm.EncoderConfig.base(), vocab_size=1000,
+                              layers=2, fused_epilogue=True,
+                              flash_min_seq=128)
+    tree = tm.init_params(cfg, "kernel-test")
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(1, 129, 16)
+    mask = (np.arange(128)[None, :] < lengths[:, None]).astype(np.int32)
+    ids = np.where(mask == 1, rng.integers(4, 1000, (16, 128)), 1)
+    ids, mask = torch.from_numpy(ids.astype(np.int32)), torch.from_numpy(mask)
+    on_cpu = tm.params_from_numpy(tree, cfg, "cpu").encode(ids, mask)
+    model = tm.params_from_numpy(tree, cfg, cuda)
+    before = {**tef.LAUNCHES, **tatt.LAUNCHES}
+    with torch.no_grad():
+        on_card = model.encode(ids.to(cuda), mask.to(cuda)).cpu()
+    after = {**tef.LAUNCHES, **tatt.LAUNCHES}
+    assert {k: after[k] - before[k] for k in after} == {
+        "bias_gelu": 2, "residual_ln": 4, "flash_attn": 2}
+    assert (on_card * on_cpu).sum(dim=1).min().item() >= 0.9999

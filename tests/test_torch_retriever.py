@@ -132,3 +132,110 @@ def test_retrieval_config_matches(monkeypatch, tmp_path, env):
     got = load_retrieval_config()
     for name in ENV_NAMES:
         assert getattr(got, name) == getattr(want, name), name
+
+
+# ---------------------------------------------------------------------------
+# The slice as a whole: each package ingests the same passages with its own
+# small_test E5 encoder and answers the same questions through it.
+#
+# Tolerance: the two encoders agree to ~1e-6 per component (see
+# test_torch_encoder.py), so dense scores agree to well under TIE = 1e-4.
+# Ids must be equal position by position, except at positions whose rows
+# have a dense score within TIE of another row of the same list; those
+# are compared as sets, as compare_topk does for the scan kernel. BM25
+# scores agree to 1e-4 and fused scores to 1e-6 wherever the ids agree.
+# ---------------------------------------------------------------------------
+
+TIE = 1e-4
+
+
+@pytest.fixture(scope="module")
+def e5_pair(tmp_path_factory):
+    from classmate_rag_tpu.embeddings.encoder import E5Encoder as JE5
+    from classmate_rag_tpu.embeddings.model import EncoderConfig as JCfg
+    from classmate_rag_tpu_torch.embeddings.encoder import E5Encoder as TE5
+    from classmate_rag_tpu_torch.embeddings.model import EncoderConfig as TCfg
+
+    texts, metas, _q = _corpus(n=300, seed=3)
+    rng = np.random.default_rng(4)
+    questions = [" ".join(rng.choice(t.split(), size=min(4, len(t.split())),
+                                     replace=False)) for t in texts[::12]]
+    ids = [f"p{i}" for i in range(len(texts))]
+    tokens = [j_tokenize(t, "en") for t in texts]
+    je = JE5(model_name="test-tiny", config=JCfg.small_test())
+    te = TE5(model_name="test-tiny", config=TCfg.small_test(), device="cpu")
+    jvecs, tvecs = je.encode_passages(texts), te.encode_passages(texts)
+    js = JStore(te.dim, tmp_path_factory.mktemp("e5idx"), slab_rows=256,
+                terms_per_chunk=32)
+    ts = TStore(te.dim, slab_rows=256, terms_per_chunk=32, device="cpu")
+    js.upsert(ids, jvecs, tokens, metas)
+    ts.upsert(ids, tvecs, tokens, metas)
+    jc = JCatalog.load_or_create(tmp_path_factory.mktemp("e5cat"))
+    tc = TCatalog()
+    for i, cid in enumerate(ids):
+        jc.upsert(JEntry(cid, texts[i], tokens[i], metas[i]))
+        tc.upsert(TEntry(cid, texts[i], tokens[i], metas[i]))
+    return (JRet(js, jc, je), TRet(ts, tc, te), questions,
+            dict(zip(ids, jvecs)), je)
+
+
+def _same_up_to_ties(a, b, qvec, vec_of):
+    ia, ib = [x["id"] for x in a], [x["id"] for x in b]
+    assert len(ia) == len(ib)
+    diff = [p for p in range(len(ia)) if ia[p] != ib[p]]
+    if diff:
+        score = {cid: float(vec_of[cid] @ qvec) for cid in set(ia) | set(ib)}
+
+        def tied(cid):
+            return any(abs(score[cid] - score[o]) < TIE
+                       for o in score if o != cid)
+
+        assert all(tied(ia[p]) and tied(ib[p]) for p in diff), (ia, ib)
+        assert {ia[p] for p in diff} == {ib[p] for p in diff}, (ia, ib)
+    for x, y in zip(a, b):
+        if x["id"] != y["id"]:
+            continue
+        for key, tol in (("fused", 1e-6), ("bm25_score", 1e-4)):
+            u, v = x["scores"][key], y["scores"][key]
+            assert (u is None) == (v is None), key
+            if u is not None:
+                assert abs(u - v) <= tol * (1 + abs(u)), key
+    return len(diff)
+
+
+@pytest.mark.parametrize("filters", [None, {"course": "c1"}])
+def test_e5_slice_matches(e5_pair, filters):
+    jr, tr, questions, vec_of, je = e5_pair
+    want = jr.retrieve_batch(questions=questions, filters=filters)
+    got = tr.retrieve_batch(questions=questions, filters=filters)
+    qvecs = je.encode_queries(questions)
+    swapped = sum(_same_up_to_ties(a, b, q, vec_of)
+                  for a, b, q in zip(want, got, qvecs))
+    assert sum(len(g) for g in got) == 8 * len(questions)
+    assert swapped <= len(questions)   # ties are the exception
+
+
+def test_e5_device_handoff_equals_host_path(e5_pair):
+    """The port's retriever takes the encoder's tensor (use_device_encode)
+    and gives the same rows as the host path."""
+    import dataclasses
+
+    _jr, tr, questions, _v, _je = e5_pair
+    seen = []
+    store = tr.store
+    orig = store.hybrid_topk_batch
+
+    def spy(q, *args, **kw):
+        seen.append(type(q).__name__)
+        return orig(q, *args, **kw)
+
+    store.hybrid_topk_batch = spy
+    try:
+        dev = tr.retrieve_batch(questions=questions[:5])
+        host = dataclasses.replace(tr, use_device_encode=False) \
+            .retrieve_batch(questions=questions[:5])
+    finally:
+        del store.hybrid_topk_batch
+    assert seen == ["Tensor", "ndarray"]
+    assert [[x["id"] for x in r] for r in dev] == \
+        [[x["id"] for x in r] for r in host]
