@@ -12,8 +12,10 @@ Phases, one JSON line each; any failure exits non-zero with no result:
 
 1. device     card name and power limit (nvidia-smi), kernel build seconds;
 2. kernels    each kernel vs its plain version at the main paths' shapes
-              and at edge cases; its time, the plain version's, one
-              PyTorch library call's, and the card's bound;
+              and at edge cases (topk_scan also at 1,048,576 rows;
+              topk_merge, its second launch, merges its lists); its
+              time, the plain version's, one PyTorch library call's,
+              and the card's bound;
 3. slice      4 batches of 256 queries through IndexStore.hybrid_topk_batch
               (launch counts reset just before, read just after), each
               held against the same step on CPU copies of its inputs;
@@ -36,9 +38,12 @@ Phases, one JSON line each; any failure exits non-zero with no result:
               port's own vectors; encode, step and warm batch latency.
 
 Then the kernels line ({"kernels": [...]}), the nvidia-smi line, and
-last {"ok": true, "device": {...}}. ``--profile PATH`` also traces one
-warm batch (table in PATH) and one encoder forward (table in
-PATH_encoder).
+last {"ok": true, "device": {...}}. A kernel's ``ms`` (and the plain
+and library times beside it) is CUDA-event time over 20 calls in a row
+after warm-up, divided by 20; ``ms_single`` is the median of 20 calls
+timed one by one, host launch overhead included. ``--profile PATH``
+also traces one warm batch (table in PATH) and one encoder forward
+(table in PATH_encoder).
 """
 
 from __future__ import annotations
@@ -249,7 +254,25 @@ def oracle_query(qv, terms, emb, bm25, sims):
 # ---------------------------------------------------------------------------
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after warm-up."""
+    """The card's time for one call of ``fn``: CUDA events around
+    ``reps`` calls in a row after warm-up, over ``reps`` (the host
+    queues the next launch while the card runs the last)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_single_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median of ``reps`` calls of ``fn`` each timed alone with CUDA
+    events: the card's time plus the host's before the first launch."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -286,63 +309,134 @@ def compare_topk(ttopk, emb, q, bias, k):
     return err
 
 
-def kernel_phase(ttopk, store, q_dev, peaks):
-    """topk_scan at the main path's shape and at its edges."""
-    dev = store._sync_device()
-    emb = dev["emb"]
-    n, d = emb.shape
-    sel = min(max(store.rescore_pool, POOL), n)
-    # The main path's unfiltered bias with ~10% of the rows masked on top.
-    g = torch.Generator(device="cuda").manual_seed(7)
-    bias = store._mask_bias(None).clone()
-    bias[torch.rand(n, device="cuda", generator=g) < 0.1] = ttopk.NEG_INF
-    errs = [compare_topk(ttopk, emb, q_dev, bias, sel)]
-
+def slice_edges(ttopk):
+    """topk_scan at the edges of its slice walk; returns max |dscore|."""
     rng = np.random.default_rng(3)
 
-    def unit(rows, dd):
+    def unit(rows, dd=DIM):
         x = rng.standard_normal((rows, dd)).astype(np.float32)
         return torch.from_numpy(x / np.linalg.norm(x, axis=1, keepdims=True))
 
-    small = unit(5000 + 77, DIM).to(torch.bfloat16).cuda()  # ragged tile
-    sq = unit(70, DIM).cuda()
+    # Q not a multiple of the 64-query block; k = 1 and k = 128; a
+    # ragged last tile; every 9th row masked.
+    small = unit(5000 + 77).to(torch.bfloat16).cuda()
+    sq = unit(70).cuda()
     sb = torch.zeros(small.shape[0], device="cuda")
     sb[::9] = ttopk.NEG_INF
-    for k in (1, 128):
-        errs.append(compare_topk(ttopk, small, sq, sb, k))
+    errs = [compare_topk(ttopk, small, sq, sb, k) for k in (1, 128)]
     all_masked = torch.full_like(sb, ttopk.NEG_INF)
     v1, i1 = ttopk.masked_topk(small, sq, all_masked, 16)
     v0, i0 = ttopk.topk_reference(small, sq, all_masked, 16)
     check(torch.equal(i1, i0) and bool((v1 <= ttopk.NEG_INF / 2).all()),
           "topk_scan: all-masked corpus")
-    dup = small.clone()
-    dup[4100:4108] = dup[10:18]          # copies two chunks later
-    v1, i1 = ttopk.masked_topk(dup, dup[10:12].float(), torch.zeros_like(sb),
-                               12)
-    v0, i0 = ttopk.topk_reference(dup, dup[10:12].float(),
-                                  torch.zeros_like(sb), 12)
-    check(torch.equal(i1, i0) and i1[0, :2].tolist() == [10, 4100],
-          f"topk_scan: cross-chunk ties {i1[0, :4].tolist()}")
+    # A duplicate row in another slice: the lower row first.
+    n = 50_000
+    dup = unit(n).to(torch.bfloat16).cuda()
+    dup[n // 2] = dup[10]
+    zeros = torch.zeros(n, device="cuda")
+    _s, rows = ttopk.kernel_slices(n, 2, DIM, 12, dup.device)
+    check(10 // rows != (n // 2) // rows, "duplicate not in another slice")
+    v1, i1 = ttopk.masked_topk(dup, dup[10:12].float(), zeros, 12)
+    v0, i0 = ttopk.topk_reference(dup, dup[10:12].float(), zeros, 12)
+    check(torch.equal(i1, i0) and i1[0, :2].tolist() == [10, n // 2],
+          f"topk_scan: cross-slice ties {i1[0, :4].tolist()}")
+    # Identical rows: every score ties, the lowest k rows in order.
+    same = unit(1).to(torch.bfloat16).cuda().expand(3000, DIM).contiguous()
+    v1, i1 = ttopk.masked_topk(same, sq[:5], zeros[:3000], 32)
+    want = torch.arange(32, dtype=torch.int32, device="cuda").expand(5, 32)
+    check(torch.equal(i1, want), "topk_scan: identical rows")
+    # A corpus below one tile, and one whose last slice holds one row.
+    errs.append(compare_topk(ttopk, small[:77].contiguous(), sq[:5], sb[:77],
+                             16))
+    n_edge = next(t * 128 + 1 for t in range(2, 4096)
+                  if (t * 128 + 1) % ttopk.kernel_slices(
+                      t * 128 + 1, BATCH, DIM, 32, small.device)[1] == 1)
+    edge = unit(n_edge).to(torch.bfloat16).cuda()
+    errs.append(compare_topk(ttopk, edge, unit(BATCH).cuda(),
+                             torch.zeros(n_edge, device="cuda"), 32))
+    return max(errs)
 
-    ms = time_ms(lambda: ttopk.masked_topk(emb, q_dev, bias, sel))
-    plain_ms = time_ms(lambda: ttopk.topk_reference(emb, q_dev, bias, sel))
-    q16 = q_dev.to(torch.bfloat16)
-    library_ms = time_ms(
-        lambda: torch.topk(torch.matmul(q16, emb.T).float() + bias, sel)
-    )
-    nq = q_dev.shape[0]
-    bytes_moved = n * d * 2 + nq * d * 4 + n * 4 + nq * sel * 8
-    flops = 2.0 * nq * n * d
-    return kernel_row(
+
+def scan_row(ttopk, emb, q, bias, k, peaks, err):
+    """topk_scan's numbers at one shape: the wrapper (scan + merge), the
+    scan alone, the plain version and one PyTorch library call."""
+    n, d = emb.shape
+    nq = q.shape[0]
+    q16 = q.to(torch.bfloat16)
+    row = kernel_row(
         "topk_scan", "topk_scan.cu", "classmate_rag_tpu/ops/topk.py:170",
-        {"N": n, "d": d, "Q": nq, "k": sel}, max(errs), ms, plain_ms,
-        library_ms, bytes_moved, flops, peaks[0], peaks[1])
+        {"N": n, "d": d, "Q": nq, "k": k}, err,
+        lambda: ttopk.masked_topk(emb, q, bias, k),
+        time_ms(lambda: ttopk.topk_reference(emb, q, bias, k), reps=5),
+        time_ms(lambda: torch.topk(torch.matmul(q16, emb.T).float() + bias,
+                                   k)),
+        n * d * 2 + nq * d * 4 + n * 4 + nq * k * 8,
+        2.0 * nq * n * d, peaks[0], peaks[1])
+    row["scan_ms"] = time_ms(lambda: ttopk.scan_partials(emb, q, bias, k))
+    row["slices"] = ttopk.kernel_slices(n, nq, d, k, emb.device)[0]
+    return row
 
 
-def kernel_row(name, source, replaces, shape, err, ms, plain_ms, library_ms,
+def merge_row(ttopk, emb, q, bias, k, peaks):
+    """topk_merge (the scan's lists -> the top-k) vs merge_partials, its
+    plain version, on one scan's lists at the main path's shape."""
+    part_vals, part_rows, bounds = ttopk.scan_partials(emb, q, bias, k)
+    got_v, got_r = ttopk.merge_slices(part_vals, part_rows, bounds, k)
+    want_v, want_r = ttopk.merge_partials(part_vals, part_rows, k)
+    torch.cuda.synchronize()
+    check(torch.equal(got_r, want_r), "topk_merge: rows differ")
+    err = (got_v - want_v).abs().max().item()
+    check(err == 0.0, f"topk_merge: max |dscore| {err}")
+    nq, lists, _ = part_vals.shape
+    flat = part_vals.reshape(nq, -1)
+    return kernel_row(
+        "topk_merge", "topk_scan.cu", "classmate_rag_tpu/ops/topk.py:170",
+        {"Q": nq, "lists": lists, "k": k}, err,
+        lambda: ttopk.merge_slices(part_vals, part_rows, bounds, k),
+        time_ms(lambda: ttopk.merge_partials(part_vals, part_rows, k)),
+        # One call, the same top-k up to the order of equal scores.
+        time_ms(lambda: torch.topk(flat, k)),
+        nq * lists * k * 8 + nq * 4 + nq * k * 8, 0.0, peaks[0], peaks[1])
+
+
+def kernel_phase(ttopk, store, q_dev, peaks):
+    """topk_scan at the main path's shape, at the reference's 1M-row
+    bench scale and at the edges of its slice walk."""
+    dev = store._sync_device()
+    emb = dev["emb"]
+    n = emb.shape[0]
+    sel = min(max(store.rescore_pool, POOL), n)
+    # The main path's unfiltered bias with ~10% of the rows masked on top.
+    g = torch.Generator(device="cuda").manual_seed(7)
+    bias = store._mask_bias(None).clone()
+    bias[torch.rand(n, device="cuda", generator=g) < 0.1] = ttopk.NEG_INF
+    err = max(compare_topk(ttopk, emb, q_dev, bias, sel), slice_edges(ttopk))
+    serving = scan_row(ttopk, emb, q_dev, bias, sel, peaks, err)
+    merge = merge_row(ttopk, emb, q_dev, bias, sel, peaks)
+
+    # 1,048,576 rows (BENCH_r04's scale, the approx route's shape): unit
+    # rows made on the card, 256 queries made from rows as make_queries
+    # makes them.
+    big_n = 1 << 20
+    big = torch.randn(big_n, DIM, device="cuda", generator=g)
+    big = (big / big.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    bq = big[:: big_n // BATCH][:BATCH].float()
+    bq = bq + 0.25 * torch.randn(bq.shape, device="cuda", generator=g)
+    bq = (bq / bq.norm(dim=1, keepdim=True)).contiguous()
+    bb = torch.zeros(big_n, device="cuda")
+    bb[torch.rand(big_n, device="cuda", generator=g) < 0.1] = ttopk.NEG_INF
+    big_err = compare_topk(ttopk, big, bq, bb, sel)
+    big_row = scan_row(ttopk, big, bq, bb, sel, peaks, big_err)
+    del big
+    torch.cuda.empty_cache()
+    return serving, big_row, merge
+
+
+def kernel_row(name, source, replaces, shape, err, fn, plain_ms, library_ms,
                bytes_moved, ops, bw, op_peak):
-    """One kernel's numbers; the bound is the larger of bytes over the
-    memory rate and operations over the peak rate of their type."""
+    """One kernel's numbers: ``fn`` calls its wrapper; the bound is the
+    larger of bytes over the memory rate and operations over the peak
+    rate of their type."""
     t_bytes = bytes_moved / bw * 1e3
     t_ops = ops / op_peak * 1e3
     return {
@@ -352,7 +446,8 @@ def kernel_row(name, source, replaces, shape, err, ms, plain_ms, library_ms,
         "replaces": replaces,
         "shape": shape,
         "max_abs_err": err,
-        "ms": ms,
+        "ms": time_ms(fn),
+        "ms_single": time_single_ms(fn),
         "plain_ms": plain_ms,
         "library_ms": library_ms,
         "bound_ms": max(t_bytes, t_ops),
@@ -393,7 +488,7 @@ def epilogue_kernels(tef, peaks):
     gelu = kernel_row(
         "bias_gelu", "bias_gelu.cu",
         "classmate_rag_tpu/ops/encoder_fused.py:104", {"N": n, "F": f}, err,
-        time_ms(lambda: tef.bias_gelu(y, b)),
+        lambda: tef.bias_gelu(y, b),
         time_ms(lambda: tef.bias_gelu_reference(y, b)),
         time_ms(lambda: F.gelu(y + b).to(torch.bfloat16)),
         n * f * (4 + 2) + 4 * f,
@@ -415,7 +510,7 @@ def epilogue_kernels(tef, peaks):
     ln = kernel_row(
         "residual_ln", "residual_ln.cu",
         "classmate_rag_tpu/ops/encoder_fused.py:145", {"N": n, "H": h}, err,
-        time_ms(lambda: tef.residual_ln(*args, eps=1e-5)),
+        lambda: tef.residual_ln(*args, eps=1e-5),
         time_ms(lambda: tef.residual_ln_reference(*args, eps=1e-5)),
         time_ms(lambda: F.layer_norm(resid + y + b, (h,), gg, beta, 1e-5)),
         3 * n * h * 4 + 3 * h * 4,
@@ -461,7 +556,7 @@ def flash_kernel(tatt, peaks):
             "classmate_rag_tpu/embeddings/model.py:272",
             {"B": b, "T": t, "heads": nh, "head_dim": hd,
              "real_keys": real}, err,
-            time_ms(lambda: tatt.flash_attention(q, k, v, mask, 0.125)),
+            lambda: tatt.flash_attention(q, k, v, mask, 0.125),
             time_ms(lambda: tatt.attention_reference(q, k, v, mask, 0.125)),
             time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=keep)),
@@ -640,7 +735,8 @@ def encoder_phase(rng, docs, counts, peaks, profile_path):
                   if t >= slice_cfg.flash_min_seq and t % 128 == 0)
     n_layers = slice_cfg.layers      # 12: 12 / 24 / 12 a forward
     want = {"bias_gelu": n_layers * n_fwd, "residual_ln": 2 * n_layers * n_fwd,
-            "flash_attn": n_layers * n_flash, "topk_scan": 0}
+            "flash_attn": n_layers * n_flash, "topk_scan": 0,
+            "topk_merge": 0}
     check(launches == want, f"encoder launches {launches} != {want}")
     check(n_flash > 0 and n_flash < n_fwd, "expected flash and non-flash "
           f"buckets, got {sorted(set(t for _b, t in shapes))}")
@@ -726,7 +822,8 @@ def encoder_phase(rng, docs, counts, peaks, profile_path):
             with torch.no_grad():
                 enc.model(ids, mask)
 
-        emit(profile_batch(forward, str(path), by_bucket[128]["slice_ms"],
+        emit(profile_batch(forward, str(path),
+                           time_single_ms(forward, reps=5, warmup=2),
                            phase="profile_encoder"))
     return enc, launches
 
@@ -911,10 +1008,11 @@ def main() -> int:
 
     # ---- 2. kernels ----------------------------------------------------
     q0 = torch.from_numpy(np.stack([qv for qv, _t in batches[0]])).cuda()
-    kern = kernel_phase(ttopk, store, q0, peaks)
+    kern, kern_1m, merge = kernel_phase(ttopk, store, q0, peaks)
     gelu, ln = epilogue_kernels(tef, peaks)
     flash, flash_rows = flash_kernel(tatt, peaks)
-    emit({"phase": "kernels", "kernels": [kern, gelu, ln, *flash_rows]})
+    emit({"phase": "kernels",
+          "kernels": [kern, kern_1m, merge, gelu, ln, *flash_rows]})
     counts = Counts(ttopk, tef, tatt)
 
     # ---- 3. slice: the main path -----------------------------------------
@@ -933,8 +1031,9 @@ def main() -> int:
         events.append(start.elapsed_time(end))
         outs.append((out, rows))
     launches = counts.read()
-    check(launches["topk_scan"] == len(batches),
-          f"topk_scan launches {launches['topk_scan']} != {len(batches)}")
+    for name in ("topk_scan", "topk_merge"):
+        check(launches[name] == len(batches),
+              f"{name} launches {launches[name]} != {len(batches)}")
 
     agree_total, worst = 0, 0.0
     t0 = time.perf_counter()
@@ -992,7 +1091,8 @@ def main() -> int:
     out = run_batch(batch)
     out.rows.cpu()
     approx_launches = counts.read()
-    check(approx_launches["topk_scan"] == 1, "approx: scan not launched")
+    check(approx_launches["topk_scan"] == approx_launches["topk_merge"] == 1,
+          "approx: scan or merge not launched")
     cpu = step_on_cpu(hybrid_query_step_split, store, q, terms, **knobs)
     n_agree, diff = compare_steps(out, cpu)
     exact_rows = outs[1][1]
@@ -1051,6 +1151,7 @@ def main() -> int:
 
     line = []
     for row, n in ((kern, launches["topk_scan"]),
+                   (merge, launches["topk_merge"]),
                    (gelu, enc_launches["bias_gelu"]),
                    (ln, enc_launches["residual_ln"]),
                    (flash, enc_launches["flash_attn"])):

@@ -1,297 +1,1008 @@
-// Masked dense scan with a per-chunk exact top-k, for Hopper (sm_90a).
+// Masked dense scan with a running exact top-k, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel classmate_rag_tpu/ops/topk.py::topk_pallas:
 //   scores[q, n] = bf16(queries[q]) . emb[n] + mask_bias[n]   (f32 sums)
-// and, for every query, the k best (score desc, row asc) rows. The full
-// [Q, N] score matrix is never written to device memory: each block
-// keeps a running top-k per query in shared memory and writes only that
-// list, [Q, n_chunks, k]. The wrapper (ops/topk.py) merges the chunk
-// lists with a stable descending sort, which keeps lowest-row-first
-// among equal scores because chunk lists ascend by row at equal scores.
+// and, for every query, the k best (score desc, row asc) rows. Two
+// launches: topk_scan_kernel walks the corpus and writes a few sorted
+// lists per query, the [Q, N] score matrix never; topk_merge_kernel
+// merges them into each query's top-k (topk_pallas's own final
+// lax.top_k over its per-tile lists).
 //
-// Grid: (query blocks of QB rows) x (corpus chunks of CHUNK_ROWS rows);
-// the query-block index varies fastest, so the blocks that read one
-// corpus chunk run side by side and share it through L2.
-// Each block, per sub-tile of TN corpus rows:
-//   1. streams the query rows (f32 -> bf16) and the sub-tile in KC-wide
-//      slices of d through shared memory and accumulates
-//      Q_blk . E_tile^T in f32 on the tensor cores (WMMA 16x16x16 bf16);
-//   2. adds mask_bias and merges the TN new scores of each query into
-//      that query's sorted top-k list (one warp per query, insertion only
-//      for scores that beat the current k-th entry).
+// What bounds it on an H100, at the serving shape (N = 262,144 rows of
+// d = 768 bf16, Q = 256, k = 32): the corpus read, 403 MB -> 120 us at
+// 3.35 TB/s, against 103 GFLOP -> 104 us at 989 TFLOP/s bf16. The two
+// are nearly balanced, so the copies, the products and the selection
+// must overlap or stay small:
 //
-// What bounds it on an H100: the corpus read. At the serving shape
-// (N = 262,144 rows of d = 768 bf16, Q = 256, k = 32) the kernel must
-// move 403 MB, 120 us at 3.35 TB/s, against 103 GFLOP, 104 us at
-// 989 TFLOP/s bf16: memory-bound, barely. This first version is simple
-// rather than fast: synchronous global->shared copies, no cp.async/TMA
-// pipeline and no wgmma; several blocks per SM hide part of the latency.
-// The top-k merge runs on the CUDA cores while other blocks on the SM
-// use the tensor cores.
+// - Grid (Q / 64 query blocks) x (S corpus slices), S chosen by the
+//   wrapper so the grid is one wave of resident blocks (4 x 33 on 132
+//   SMs). The query blocks of a slice run side by side and share each
+//   corpus tile through L2; device memory sees the corpus once.
+// - Queries stay resident: each block converts its 64 query rows to bf16
+//   once, into shared memory in the 128-byte-swizzled layout wgmma reads
+//   (96 KB at d = 768), and keeps them for its whole walk.
+// - The corpus arrives through a ring of (128 rows x 64 columns) bf16
+//   stages: one producer thread keeps TMA loads in flight
+//   (cp.async.bulk.tensor with 128-byte swizzle, completion counted on
+//   an mbarrier per stage); a consumer frees a stage as soon as the
+//   products that read it have retired.
+// - Products on the tensor cores with wgmma m64n128k16 (bf16 in, f32
+//   accumulators in registers), both operands K-major from shared memory
+//   through swizzled descriptors, two stages in flight.
+// - Two consumer warpgroups take the slice's 128-row tiles in turn, so
+//   one's selection runs while the other's products do (one warpgroup
+//   where two sets of lists leave too little shared memory, large k).
+// - Selection, a few instructions a score: each warpgroup keeps one
+//   running top-k list per query across its tiles; a score survives only
+//   if it beats the list's k-th entry and reaches the query's published
+//   bound (the largest k-th score any list of the grid has reached,
+//   shared through one atomicMax a query: a row below it cannot make the
+//   final top-k). The first tile seeds that bound by bisection on the
+//   tile's own scores; then each list adds its first tile's two best
+//   scores to a pool per query, and one block per query raises the
+//   bound to the pool's k-th best. Survivors go to a 32-entry buffer
+//   per query, merged into the list with a warp bitonic network when it
+//   fills and once at the end. Comparing (score, row) pairs keeps the lowest row
+//   among equal scores, whatever the order of arrival.
 //
 // Sentinels: rows past N are never candidates; a list slot never filled
-// reports (NEG_INF, -1). Scores of masked rows are score + NEG_INF,
-// which rounds to NEG_INF, exactly as in the plain version.
+// is (-inf, -1), below every real score, and the merge reports an
+// unfilled result slot as (NEG_INF, -1). Scores of masked rows are
+// score + NEG_INF, which rounds to NEG_INF, exactly as in the plain
+// version.
 
+#include <cuda.h>  // CUtensorMap and its enums; the driver entry point is
+                   // fetched at run time, so the library needs no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <climits>
 #include <cstdint>
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int QB = 64;          // queries per block
-constexpr int TN = 128;         // corpus rows per sub-tile
-constexpr int KC = 64;          // slice of d staged per step
-constexpr int SUBTILES = 16;    // sub-tiles per block
-constexpr int CHUNK_ROWS = TN * SUBTILES;
-constexpr int THREADS = 256;    // 8 warps
-constexpr int LDA = KC + 8;     // padded smem strides (bank conflicts)
-constexpr int LDS = TN + 4;
+constexpr int QB = 64;        // queries per block: the M of one wgmma
+constexpr int TN = 128;       // corpus rows per tile: the N of one wgmma
+constexpr int KC = 64;        // columns of d per stage: one 128-byte row
+constexpr int CAP = 32;       // candidate buffer entries per query
 constexpr int MAX_K = 128;
+constexpr int MIN_STAGES = 2;
+constexpr int MAX_STAGES = 8;
+constexpr int Q_CHUNK_BYTES = QB * KC * 2;   // 8 KB
+constexpr int STAGE_BYTES = TN * KC * 2;     // 16 KB
+constexpr int SEED_BITS = 16;  // key bits a bisected bound resolves
+constexpr int POOL_TOP = 2;    // scores each list adds to its query's pool
+constexpr int POOL_READ = 128;  // pool entries a bound is taken from
+constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr float NEG_INF_F = -3.4028234663852886e38f;  // f32 min
 
-constexpr int SQ_BYTES = QB * LDA * 2;
-constexpr int SE_BYTES = TN * LDA * 2;
-constexpr int SS_BYTES = QB * LDS * 4;
-constexpr int STAGE_BYTES =
-    (SQ_BYTES + SE_BYTES) > SS_BYTES ? (SQ_BYTES + SE_BYTES) : SS_BYTES;
+// Named barriers (0 is __syncthreads): all consumers; the turn of each of
+// two consumer warpgroups to issue its products.
+constexpr int BAR_CONSUMERS = 1;
+constexpr int BAR_TURN = 2;
+
+// Shared-memory layout for one (d, k, stages, consumer warpgroups);
+// offsets from a 1024-byte aligned base (the 128-byte swizzle repeats
+// every 8 rows = 1024 bytes). Each consumer warpgroup has its own lists
+// and buffers.
+struct Layout {
+  int ring, lv, lr, bv, br, bar, bytes;
+};
+
+__host__ __device__ inline Layout layout(int d, int k, int stages, int wgs) {
+  Layout L;
+  const int chunks = (d + KC - 1) / KC;
+  L.ring = chunks * Q_CHUNK_BYTES;
+  L.lv = L.ring + stages * STAGE_BYTES;
+  L.lr = L.lv + wgs * QB * k * 4;
+  L.bv = L.lr + wgs * QB * k * 4;
+  L.br = L.bv + wgs * QB * CAP * 4;
+  L.bar = L.br + wgs * QB * CAP * 4;
+  L.bytes = L.bar + 2 * stages * 8 + 1024;  // + slack to align the base
+  return L;
+}
 
 __device__ __forceinline__ bool beats(float av, int ar, float bv, int br) {
   return av > bv || (av == bv && ar < br);
 }
 
-__global__ void __launch_bounds__(THREADS)
-topk_scan_kernel(const __nv_bfloat16* __restrict__ emb,   // [N, d]
-                 const float* __restrict__ queries,       // [Q, d]
-                 const float* __restrict__ bias,          // [N]
-                 float* __restrict__ out_vals,            // [Q, n_chunks, k]
-                 int* __restrict__ out_rows,              // [Q, n_chunks, k]
-                 int n, int d, int nq, int k, int n_chunks) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sE = reinterpret_cast<__nv_bfloat16*>(smem + SQ_BYTES);
-  float* sS = reinterpret_cast<float*>(smem);  // aliases sQ/sE
-  float* sBias = reinterpret_cast<float*>(smem + STAGE_BYTES);
-  float* Lv = sBias + TN;                       // [QB, k]
-  int* Lr = reinterpret_cast<int*>(Lv + QB * k);  // [QB, k]
+// f32 -> unsigned with the same order, so atomicMax on the key is a max
+// on the score; key 0 (never made from a score) means "none yet".
+__device__ __forceinline__ unsigned float_key(float f) {
+  const unsigned u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_float(unsigned key) {
+  if (key == 0u) return -INFINITY;
+  return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers --------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Waits for the phase of ``parity`` to complete. A phase that never
+// completes (a bug) traps after ~10 s instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint64_t t0 = 0;
+  for (int spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((spin & 1023) == 1023) {
+      uint64_t now;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+      if (t0 == 0) {
+        t0 = now;
+      } else if (now - t0 > 10000000000ull) {
+        __trap();
+      }
+    }
+  }
+}
+
+// ---- TMA and wgmma ----------------------------------------------------
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Descriptor of a K-major operand in the 128-byte-swizzled layout: rows
+// of 64 bf16 (128 bytes), 8-row groups 1024 bytes apart (SBO); the
+// leading offset is unused for this layout. Advancing 16 columns along K
+// is +32 bytes on the start address.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  const uint64_t addr = smem_addr(p);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T, bf16 in, f32 accumulate.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// ---- selection ----------------------------------------------------------
+
+// acc[4j + 2i + e] at the run-time column bit b = 2j + e of query half i:
+// a tree of selects on the bits of b (registers take no run-time index).
+__device__ __forceinline__ float pick(const float (&acc)[64], int i, int b) {
+  float v16[16], v8[8], v4[4], v2[2];
+#pragma unroll
+  for (int x = 0; x < 16; ++x) {
+    v16[x] = (b & 1) ? acc[4 * x + 2 * i + 1] : acc[4 * x + 2 * i];
+  }
+#pragma unroll
+  for (int x = 0; x < 8; ++x) v8[x] = (b & 2) ? v16[2 * x + 1] : v16[2 * x];
+#pragma unroll
+  for (int x = 0; x < 4; ++x) v4[x] = (b & 4) ? v8[2 * x + 1] : v8[2 * x];
+#pragma unroll
+  for (int x = 0; x < 2; ++x) v2[x] = (b & 8) ? v4[2 * x + 1] : v4[2 * x];
+  return (b & 16) ? v2[1] : v2[0];
+}
+
+// One compare-exchange of a bitonic network over the 32 lanes: lane and
+// lane ^ stride compare (v, r); the lower lane keeps the better pair in
+// a descending block and the worse one in an ascending block.
+__device__ __forceinline__ void exchange(float& v, int& r, int stride,
+                                         bool descending, int lane) {
+  const float ov = __shfl_xor_sync(FULL_MASK, v, stride);
+  const int orr = __shfl_xor_sync(FULL_MASK, r, stride);
+  const bool keep_better = ((lane & stride) == 0) == descending;
+  if (beats(ov, orr, v, r) == keep_better) {
+    v = ov;
+    r = orr;
+  }
+}
+
+// A bitonic sequence over the lanes -> descending.
+__device__ __forceinline__ void bitonic_merge(float& v, int& r, int lane) {
+#pragma unroll
+  for (int stride = 16; stride > 0; stride >>= 1) {
+    exchange(v, r, stride, true, lane);
+  }
+}
+
+// Merges up to 32 candidates (lane j holds candidate j, empty slots
+// (-inf, INT_MAX)) into a query's sorted list of k <= 32 * KW entries
+// ((score desc, row asc), empty slots last): sort the candidates, then
+// pass them down the list 32 entries at a time; at each step the better
+// half of (segment, candidates) is the new segment and the worse half
+// goes on. One warp; the list is in shared memory.
+template <int KW>
+__device__ __forceinline__ void merge_into(float* lv, int* lr, float cv, int cr,
+                                           int k, int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      exchange(cv, cr, stride, (lane & size) == 0, lane);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < KW; ++u) {
+    const int i = 32 * u + lane;
+    float sv = i < k ? lv[i] : -INFINITY;
+    int sr = i < k ? lr[i] : INT_MAX;
+    // Segment against the reversed candidates: the better of each pair
+    // are the best 32 of both (a bitonic sequence), the worse the rest.
+    const float rv = __shfl_sync(FULL_MASK, cv, 31 - lane);
+    const int rr = __shfl_sync(FULL_MASK, cr, 31 - lane);
+    const bool cand_better = beats(rv, rr, sv, sr);
+    cv = cand_better ? sv : rv;
+    cr = cand_better ? sr : rr;
+    if (cand_better) {
+      sv = rv;
+      sr = rr;
+    }
+    bitonic_merge(sv, sr, lane);
+    if (i < k) {
+      lv[i] = sv;
+      lr[i] = sr;
+    }
+    if (u + 1 < KW) bitonic_merge(cv, cr, lane);
+  }
+  __syncwarp();
+}
+
+// acc[4j + 2i + e] for the query half i and column 2j + e of this lane.
+#define ACC(i, j, e) acc[4 * (j) + 2 * (i) + (e)]
+
+// One block: 64 queries x one corpus slice. WGS consumer warpgroups take
+// the slice's tiles in turn (tile t -> warpgroup t % WGS), each with its
+// own lists, so one warpgroup's selection runs beside the other's
+// products; the turn barriers keep their product issue in tile order,
+// so each waits on a ring stage at most one phase ahead. Each writes its
+// own list per query (WGS lists a slice). The last warp is the producer.
+template <int KW, int WGS>
+__global__ void __launch_bounds__(WGS * 128 + 32, 1)
+    topk_scan_kernel(const __grid_constant__ CUtensorMap emb_map,
+                     const float* __restrict__ queries,  // [Q, d] f32
+                     const float* __restrict__ bias,     // [N] f32
+                     float* __restrict__ out_vals,       // [Q, S * WGS, k]
+                     int* __restrict__ out_rows,         // [Q, S * WGS, k]
+                     unsigned* __restrict__ bounds,      // [Q] + pools, 0s
+                     int n, int d, int nq, int k, int n_slices,
+                     int slice_rows, int stages) {
+  constexpr int CONSUMERS = WGS * 128;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const Layout L = layout(d, k, stages, WGS);
+  unsigned char* sQ = smem;
+  unsigned char* ring = smem + L.ring;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bar);
+  uint64_t* empty = full + stages;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int qb = blockIdx.x;
-  const int chunk = blockIdx.y;
-  const int q0 = qb * QB;
-  const int chunk_row0 = chunk * CHUNK_ROWS;
+  const int chunks = (d + KC - 1) / KC;
+  const int q0 = blockIdx.x * QB;
+  const int slice = blockIdx.y;
+  const int row_begin = slice * slice_rows;
+  const int row_end = min(n, row_begin + slice_rows);
+  const int n_tiles = (row_end - row_begin + TN - 1) / TN;
+  // Each query's pool, after the bounds: the POOL_TOP best scores of
+  // every list's first tile (keys, 0 where none yet).
+  unsigned* pool = bounds + nq;
+  const int pool_stride = n_slices * 2 * POOL_TOP;
 
-  for (int i = tid; i < QB * k; i += THREADS) {
-    Lv[i] = -INFINITY;
-    Lr[i] = INT_MAX;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // the 4 warps of the consuming warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMERS / 32) {
+    // ---- producer: one thread keeps the ring full ---------------------
+    if (lane == 0) {
+      int it = 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        for (int c = 0; c < chunks; ++c, ++it) {
+          const int s = it % stages;
+          mbar_wait(&empty[s], ((it / stages) & 1) ^ 1);
+          mbar_expect_tx(&full[s], STAGE_BYTES);
+          tma_load_2d(ring + s * STAGE_BYTES, &emb_map, &full[s], c * KC,
+                      row_begin + t * TN);
+        }
+      }
+    }
+    return;  // no block-wide barrier follows
   }
 
-  // Warp tile of the 64 x 128 score block: 16 rows x 64 columns.
-  const int wr = warp >> 1;
-  const int wc = warp & 1;
+  // ---- consumers: queries -> bf16, resident for the whole walk --------
+  for (int g = tid; g < QB * chunks * 8; g += CONSUMERS) {
+    const int c = g / (QB * 8);
+    const int r = (g / 8) % QB;
+    const int cg = g % 8;  // 16-byte group within the 128-byte row
+    const int col = c * KC + cg * 8;
+    uint4 packed = make_uint4(0u, 0u, 0u, 0u);
+    if (q0 + r < nq && col < d) {
+      const float4* src =
+          reinterpret_cast<const float4*>(queries + (size_t)(q0 + r) * d + col);
+      const float4 a = src[0];
+      const float4 b = src[1];
+      packed = make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w),
+                          pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
+    }
+    *reinterpret_cast<uint4*>(sQ + c * Q_CHUNK_BYTES + r * 128 +
+                              ((cg ^ (r & 7)) * 16)) = packed;
+  }
+  // Generic-proxy stores -> visible to wgmma's async-proxy reads.
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, %1;\n" ::"n"(BAR_CONSUMERS), "n"(CONSUMERS)
+               : "memory");
 
-  for (int sub = 0; sub < SUBTILES; ++sub) {
-    const int row0 = chunk_row0 + sub * TN;
-    if (row0 >= n) break;  // uniform across the block
+  // Warpgroup wg; its warp w owns local queries 16w .. 16w + 15, lists
+  // and buffers alike. In the m64n128 accumulator, lane l holds rows
+  // 16w + l/4 (i = 0) and 16w + l/4 + 8 (i = 1), columns 8j + 2(l % 4) + e,
+  // at acc[4j + 2i + e]; the 4 lanes of a quad hold the 128 columns of
+  // the same two queries.
+  const int wg = warp >> 2;
+  const int wq0 = (warp & 3) * 16;
+  float* Lv = reinterpret_cast<float*>(smem + L.lv) + wg * QB * k;
+  int* Lr = reinterpret_cast<int*>(smem + L.lr) + wg * QB * k;
+  float* Bv = reinterpret_cast<float*>(smem + L.bv) + wg * QB * CAP;
+  int* Br = reinterpret_cast<int*>(smem + L.br) + wg * QB * CAP;
+  for (int i = lane; i < 16 * k; i += 32) {
+    Lv[wq0 * k + i] = -INFINITY;
+    Lr[wq0 * k + i] = INT_MAX;
+  }
+  __syncwarp();
+  const int quad = lane & 3;
+  const int my_q[2] = {wq0 + (lane >> 2), wq0 + (lane >> 2) + 8};
+  const bool live[2] = {q0 + my_q[0] < nq, q0 + my_q[1] < nq};
+  // The list's k-th entry and the query's bound: a score survives if it
+  // beats the former and is >= the latter.
+  float thr_v[2] = {-INFINITY, -INFINITY};
+  int thr_r[2] = {INT_MAX, INT_MAX};
+  float bound[2] = {-INFINITY, -INFINITY};
+  int cnt[2] = {0, 0};
 
-    if (tid < TN) {
-      const int r = row0 + tid;
-      sBias[tid] = r < n ? bias[r] : 0.0f;
+  float acc[64];
+#pragma unroll
+  for (int x = 0; x < 64; ++x) acc[x] = 0.0f;
+
+  for (int t = wg; t < n_tiles; t += WGS) {
+    const int row0 = row_begin + t * TN;
+    const bool whole = row0 + TN <= row_end;
+    // This tile's mask bias and the published bounds, loaded while the
+    // products run.
+    float2 bb[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int r = row0 + 8 * j + 2 * quad;
+      if (whole) {
+        bb[j] = __ldg(reinterpret_cast<const float2*>(bias + r));
+      } else {
+        bb[j].x = r < row_end ? __ldg(bias + r) : 0.0f;
+        bb[j].y = r + 1 < row_end ? __ldg(bias + r + 1) : 0.0f;
+      }
+    }
+    unsigned g_key[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      g_key[i] = live[i] ? __ldcg(bounds + q0 + my_q[i]) : 0u;
     }
 
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.0f);
-
-    for (int kc = 0; kc < d; kc += KC) {
-      // Query slice: QB x KC f32 -> bf16 (4 floats per thread-step).
-#pragma unroll
-      for (int it = 0; it < (QB * KC / 4) / THREADS; ++it) {
-        const int idx = tid + it * THREADS;
-        const int r = idx / (KC / 4);
-        const int c = (idx % (KC / 4)) * 4;
-        const int q = q0 + r;
-        const int col = kc + c;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (q < nq && col < d) {
-          v = *reinterpret_cast<const float4*>(queries + (size_t)q * d + col);
-        }
-        __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-        __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-        uint2 packed;
-        packed.x = *reinterpret_cast<uint32_t*>(&lo);
-        packed.y = *reinterpret_cast<uint32_t*>(&hi);
-        *reinterpret_cast<uint2*>(sQ + r * LDA + c) = packed;
-      }
-      // Corpus slice: TN x KC bf16 (8 values = 16 bytes per thread-step).
-#pragma unroll
-      for (int it = 0; it < (TN * KC / 8) / THREADS; ++it) {
-        const int idx = tid + it * THREADS;
-        const int r = idx / (KC / 8);
-        const int c = (idx % (KC / 8)) * 8;
-        const int row = row0 + r;
-        const int col = kc + c;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (row < n && col < d) {
-          v = *reinterpret_cast<const uint4*>(emb + (size_t)row * d + col);
-        }
-        *reinterpret_cast<uint4*>(sE + r * LDA + c) = v;
-      }
-      __syncthreads();
-
-#pragma unroll
-      for (int kk = 0; kk < KC; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> a;
-        wmma::load_matrix_sync(a, sQ + (wr * 16) * LDA + kk, LDA);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          // B = E_tile^T: element (kk, n) sits at sE[n * LDA + kk],
-          // i.e. column-major with leading dimension LDA.
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::col_major> b;
-          wmma::load_matrix_sync(b, sE + (wc * 64 + j * 16) * LDA + kk, LDA);
-          wmma::mma_sync(acc[j], a, b, acc[j]);
-        }
-      }
-      __syncthreads();
+    if (WGS > 1 && t > 0) {  // the previous tile's products are issued
+      asm volatile("bar.sync %0, %1;\n" ::"r"(BAR_TURN + wg), "n"(256)
+                   : "memory");
     }
-
+    int it = t * chunks;
+    int prev = 0;
+    for (int c = 0; c < chunks; ++c, ++it) {
+      const int s = it % stages;
+      mbar_wait(&full[s], (it / stages) & 1);
+      wgmma_fence();
+      const unsigned char* a = sQ + c * Q_CHUNK_BYTES;
+      const unsigned char* b = ring + s * STAGE_BYTES;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(sS + (wr * 16) * LDS + wc * 64 + j * 16,
-                              acc[j], LDS, wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // Merge: warp w owns queries w, w + 8, ...; lane holds columns
-    // lane, lane + 32, lane + 64, lane + 96 of the sub-tile.
-    for (int ql = warp; ql < QB; ql += THREADS / 32) {
-      if (q0 + ql >= nq) break;  // uniform across the warp
-      float* lv = Lv + ql * k;
-      int* lr = Lr + ql * k;
-      float s[4];
-      int row[4];
-      bool cand[4];
-      float tv = lv[k - 1];
-      int tr = lr[k - 1];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = lane + 32 * j;
-        row[j] = row0 + c;
-        s[j] = sS[ql * LDS + c] + sBias[c];
-        cand[j] = row[j] < n && beats(s[j], row[j], tv, tr);
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_m64n128k16(acc, desc_sw128(a + kk * 32), desc_sw128(b + kk * 32),
+                         (c | kk) != 0);
       }
-      while (__any_sync(0xffffffffu, cand[0] | cand[1] | cand[2] | cand[3])) {
-        // Best candidate of this lane, then of the warp. A lane with no
-        // candidate offers (-inf, INT_MAX), which every real row beats.
-        float bv = -INFINITY;
-        int br = INT_MAX;
+      wgmma_commit();
+      if (c > 0) {
+        wgmma_wait<1>();  // the previous stage's products have retired
+        if (lane == 0) mbar_arrive(&empty[prev]);
+      }
+      prev = s;
+    }
+    if (WGS > 1 && t + 1 < n_tiles) {  // the next tile's turn
+      asm volatile("bar.arrive %0, %1;\n" ::"r"(BAR_TURN + (wg ^ 1)), "n"(256)
+                   : "memory");
+    }
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(&empty[prev]);
+
+    // Scores; a column past the slice scores -inf, below every bound.
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (cand[j] && beats(s[j], row[j], bv, br)) {
-            bv = s[j];
-            br = row[j];
-          }
-        }
+    for (int j = 0; j < 16; ++j) {
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-          const int orr = __shfl_xor_sync(0xffffffffu, br, off);
-          if (beats(ov, orr, bv, br)) {
-            bv = ov;
-            br = orr;
-          }
-        }
-        // Insert at p = number of list entries that beat the winner.
-        int cnt = 0;
-        for (int i = lane; i < k; i += 32) cnt += beats(lv[i], lr[i], bv, br);
-        const int p = __reduce_add_sync(0xffffffffu, cnt);
-        float mv[MAX_K / 32];
-        int mr[MAX_K / 32];
+      for (int e = 0; e < 2; ++e) {
+        const bool in = whole || row0 + 8 * j + 2 * quad + e < row_end;
 #pragma unroll
-        for (int m = 0; m < MAX_K / 32; ++m) {
-          const int i = lane + 32 * m;
-          if (i >= p && i < k - 1) {
-            mv[m] = lv[i];
-            mr[m] = lr[i];
-          }
-        }
-        __syncwarp();
-#pragma unroll
-        for (int m = 0; m < MAX_K / 32; ++m) {
-          const int i = lane + 32 * m;
-          if (i >= p && i < k - 1) {
-            lv[i + 1] = mv[m];
-            lr[i + 1] = mr[m];
-          }
-        }
-        __syncwarp();
-        if (lane == 0) {
-          lv[p] = bv;
-          lr[p] = br;
-        }
-        __syncwarp();
-        tv = lv[k - 1];
-        tr = lr[k - 1];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          cand[j] = cand[j] && row[j] != br && beats(s[j], row[j], tv, tr);
+        for (int i = 0; i < 2; ++i) {
+          ACC(i, j, e) = in ? ACC(i, j, e) + (e ? bb[j].y : bb[j].x)
+                            : -INFINITY;
         }
       }
     }
-    __syncthreads();  // sS is overwritten by the next sub-tile's slices
+#pragma unroll
+    for (int i = 0; i < 2; ++i) bound[i] = fmaxf(bound[i], key_float(g_key[i]));
+
+    if (t < WGS) {
+      // Seed each query's bound from this tile: the largest key (on its
+      // top SEED_BITS bits) with at least k of the tile's scores at or
+      // above it. At least k rows reach it, so the k-th score of the
+      // whole corpus does too; publish it for every block.
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        unsigned key = 0u;
+        for (int bit = 31; bit >= 32 - SEED_BITS; --bit) {
+          const unsigned cand = key | (1u << bit);
+          const float x = key_float(cand);
+          int c = 0;
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            c += (ACC(i, j, 0) >= x) + (ACC(i, j, 1) >= x);
+          }
+          c += __shfl_xor_sync(FULL_MASK, c, 1);
+          c += __shfl_xor_sync(FULL_MASK, c, 2);
+          if (c >= k) key = cand;
+        }
+        if (live[i] && key != 0u) {
+          bound[i] = fmaxf(bound[i], key_float(key));
+          if (quad == 0) atomicMax(bounds + q0 + my_q[i], key);
+        }
+      }
+    }
+
+    if (t / WGS == 2 && wg == 0) {
+      // Raise the bound of the queries this block answers for (one slice
+      // a query) to the k-th best of their pools: distinct rows' scores,
+      // so k of them at or above a key certify it as a list's k-th does.
+      for (int ql = 0; ql < 16 && q0 + wq0 + ql < nq; ++ql) {
+        if ((q0 + wq0 + ql) % n_slices != slice) continue;
+        const unsigned* row = pool + (size_t)(q0 + wq0 + ql) * pool_stride;
+        const int width = min(pool_stride, POOL_READ);
+        unsigned keys[POOL_READ / 32];
+#pragma unroll
+        for (int u = 0; u < POOL_READ / 32; ++u) {
+          keys[u] = lane + 32 * u < width ? __ldcg(row + lane + 32 * u) : 0u;
+        }
+        unsigned key = 0u;
+        for (int bit = 31; bit >= 32 - SEED_BITS; --bit) {
+          const unsigned cand = key | (1u << bit);
+          unsigned c = 0;
+#pragma unroll
+          for (int u = 0; u < POOL_READ / 32; ++u) c += keys[u] >= cand;
+          if (__reduce_add_sync(FULL_MASK, c) >= (unsigned)k) key = cand;
+        }
+        if (key != 0u) {
+          if (lane == 0) atomicMax(bounds + q0 + wq0 + ql, key);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            if (my_q[i] == wq0 + ql) bound[i] = fmaxf(bound[i], key_float(key));
+          }
+        }
+      }
+    }
+
+    // Survivors as one bit per column. Every row in the list precedes
+    // this tile, so beating its k-th entry is a strict >, i.e. >= the
+    // next float up.
+    uint32_t m[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float floor_i =
+          live[i] ? fmaxf(bound[i], nextafterf(thr_v[i], INFINITY)) : INFINITY;
+      m[i] = 0u;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          m[i] |= (uint32_t)(ACC(i, j, e) >= floor_i) << (2 * j + e);
+        }
+      }
+    }
+
+    // Survivors -> buffers; a query whose buffer fills is merged, its
+    // threshold rises, and its remaining survivors are filtered again.
+    while (__any_sync(FULL_MASK, (m[0] | m[1]) != 0u)) {
+      bool over[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int c = __popc(m[i]);
+        int incl = c;
+        int x = __shfl_up_sync(FULL_MASK, incl, 1, 4);
+        if (quad >= 1) incl += x;
+        x = __shfl_up_sync(FULL_MASK, incl, 2, 4);
+        if (quad >= 2) incl += x;
+        const int total = __shfl_sync(FULL_MASK, incl, 3, 4);
+        // This lane's survivors take slots slot, slot + 1, ...; those past
+        // the buffer stay for the next round.
+        const int slot = cnt[i] + incl - c;
+        const int fit = max(0, min(c, CAP - slot));
+        uint32_t left = m[i];
+        for (int x = 0; x < fit; ++x) {
+          const int b = __ffs(left) - 1;
+          left &= left - 1;
+          const int at = my_q[i] * CAP + slot + x;
+          Bv[at] = pick(acc, i, b);
+          Br[at] = row0 + 8 * (b >> 1) + 2 * quad + (b & 1);
+        }
+        m[i] = left;
+        over[i] = cnt[i] + total > CAP;
+        cnt[i] = min(CAP, cnt[i] + total);
+      }
+      __syncwarp();
+      const unsigned ov0 = __ballot_sync(FULL_MASK, over[0] && quad == 0);
+      const unsigned ov1 = __ballot_sync(FULL_MASK, over[1] && quad == 0);
+      if ((ov0 | ov1) == 0u) break;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        unsigned ov = i == 0 ? ov0 : ov1;
+        while (ov) {
+          const int q = wq0 + 8 * i + ((__ffs(ov) - 1) >> 2);
+          ov &= ov - 1;
+          merge_into<KW>(Lv + q * k, Lr + q * k, Bv[q * CAP + lane],
+                         Br[q * CAP + lane], k, lane);
+          if (lane == 0 && Lr[q * k + k - 1] != INT_MAX) {
+            atomicMax(bounds + q0 + q, float_key(Lv[q * k + k - 1]));
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (!over[i]) continue;
+        cnt[i] = 0;
+        thr_v[i] = Lv[my_q[i] * k + k - 1];
+        thr_r[i] = Lr[my_q[i] * k + k - 1];
+        uint32_t drop = 0u;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const bool stays =
+                ACC(i, j, e) >= bound[i] &&
+                beats(ACC(i, j, e), row0 + 8 * j + 2 * quad + e, thr_v[i],
+                      thr_r[i]);
+            drop |= (uint32_t)!stays << (2 * j + e);
+          }
+        }
+        m[i] &= ~drop;
+      }
+    }
+    if (t < WGS) {
+      // Into each query's pool: the POOL_TOP best of this first tile's
+      // survivors, in the list or still in the buffer.
+      for (int ql = 0; ql < 16; ++ql) {
+        const int q = wq0 + ql;
+        const int in_buffer =
+            __shfl_sync(FULL_MASK, ql < 8 ? cnt[0] : cnt[1], 4 * (ql & 7));
+        unsigned key = 0u;
+        if (lane < k && Lr[q * k + lane] != INT_MAX) {
+          key = float_key(Lv[q * k + lane]);
+        }
+        if (lane < in_buffer) key = max(key, float_key(Bv[q * CAP + lane]));
+        for (int u = 0; u < POOL_TOP; ++u) {
+          const unsigned best = __reduce_max_sync(FULL_MASK, key);
+          if (lane == 0 && q0 + q < nq) {
+            pool[(size_t)(q0 + q) * pool_stride +
+                 (slice * 2 + wg) * POOL_TOP + u] = best;
+          }
+          const unsigned at = __ffs(__ballot_sync(FULL_MASK, key == best)) - 1;
+          if (lane == (int)at) key = 0u;
+        }
+      }
+    }
   }
 
-  for (int i = tid; i < QB * k; i += THREADS) {
-    const int q = q0 + i / k;
-    if (q >= nq) continue;
-    float v = Lv[i];
-    int r = Lr[i];
-    if (r == INT_MAX) {
-      v = NEG_INF_F;
-      r = -1;
+  // ---- last merges and the warpgroup's list out -----------------------
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    for (int a = 0; a < 8; ++a) {
+      const int left = __shfl_sync(FULL_MASK, cnt[i], 4 * a);
+      if (left > 0) {
+        const int q = wq0 + 8 * i + a;
+        merge_into<KW>(Lv + q * k, Lr + q * k,
+                       lane < left ? Bv[q * CAP + lane] : -INFINITY,
+                       lane < left ? Br[q * CAP + lane] : INT_MAX, k, lane);
+      }
     }
-    const size_t o = ((size_t)q * n_chunks + chunk) * k + (i % k);
-    out_vals[o] = v;
-    out_rows[o] = r;
   }
+  for (int ql = 0; ql < 16; ++ql) {
+    const int q = q0 + wq0 + ql;
+    if (q >= nq) break;
+    const size_t o = ((size_t)q * n_slices * WGS + slice * WGS + wg) * k;
+    for (int i = lane; i < k; i += 32) {
+      const int r = Lr[(wq0 + ql) * k + i];
+      out_vals[o + i] = r == INT_MAX ? -INFINITY : Lv[(wq0 + ql) * k + i];
+      out_rows[o + i] = r == INT_MAX ? -1 : r;
+    }
+  }
+}
+
+#undef ACC
+
+// The lists of a scan -> each query's top-k; one warp a query. Only entries
+// at or above a bound that k rows reach can make the top-k: the scan's
+// bound, raised to the k-th best of the lists' first two entries (the
+// true top-k is spread over the lists, so that lands near the k-th
+// score). The warp gathers the entries at or above it, 32 at a time, and
+// merges them into its list; comparing (score, row) pairs keeps the
+// lowest row among equal scores.
+constexpr int MERGE_WARPS = 4;
+constexpr int MERGE_BATCH = 8;  // 32-entry loads in flight a warp
+
+template <int KW>
+__global__ void __launch_bounds__(MERGE_WARPS * 32)
+    topk_merge_kernel(const float* __restrict__ part_vals,  // [Q, lists, k]
+                      const int* __restrict__ part_rows,    // [Q, lists, k]
+                      const unsigned* __restrict__ bounds,  // [Q] keys
+                      float* __restrict__ out_vals,         // [Q, k]
+                      int* __restrict__ out_rows,           // [Q, k]
+                      int nq, int n_lists, int k) {
+  __shared__ float lv_all[MERGE_WARPS][MAX_K];
+  __shared__ int lr_all[MERGE_WARPS][MAX_K];
+  __shared__ float cv_all[MERGE_WARPS][64];
+  __shared__ int cr_all[MERGE_WARPS][64];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int q = blockIdx.x * MERGE_WARPS + warp;
+  if (q >= nq) return;  // the whole warp
+  float* lv = lv_all[warp];
+  int* lr = lr_all[warp];
+  float* cv = cv_all[warp];
+  int* cr = cr_all[warp];
+  for (int i = lane; i < k; i += 32) {
+    lv[i] = -INFINITY;
+    lr[i] = INT_MAX;
+  }
+  const size_t base = (size_t)q * n_lists * k;
+  const int total = n_lists * k;
+  unsigned heads[4];  // the first two entries of lists lane, lane + 32
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    const int list = lane + 32 * (h >> 1);
+    const int i = h & 1;
+    const size_t j = base + (size_t)list * k + i;
+    heads[h] = list < n_lists && i < k && part_rows[j] >= 0
+                   ? float_key(part_vals[j])
+                   : 0u;
+  }
+  unsigned key = 0u;
+  for (int bit = 31; bit >= 32 - SEED_BITS; --bit) {
+    const unsigned cand = key | (1u << bit);
+    unsigned c = 0;
+#pragma unroll
+    for (int h = 0; h < 4; ++h) c += heads[h] >= cand;
+    if (__reduce_add_sync(FULL_MASK, c) >= (unsigned)k) key = cand;
+  }
+  const float bound = key_float(max(key, bounds[q]));
+  int have = 0;  // gathered candidates in cv / cr, fewer than 32
+  for (int j0 = 0; j0 < total; j0 += 32 * MERGE_BATCH) {
+    float v[MERGE_BATCH];  // loaded together: one wait for the batch
+    int r[MERGE_BATCH];
+#pragma unroll
+    for (int b = 0; b < MERGE_BATCH; ++b) {
+      const int j = j0 + 32 * b + lane;
+      v[b] = j < total ? part_vals[base + j] : -INFINITY;
+      r[b] = j < total ? part_rows[base + j] : -1;
+    }
+#pragma unroll
+    for (int b = 0; b < MERGE_BATCH; ++b) {
+      const bool keep = r[b] >= 0 && v[b] >= bound;
+      const unsigned ball = __ballot_sync(FULL_MASK, keep);
+      if (keep) {
+        const int pos = have + __popc(ball & ((1u << lane) - 1u));
+        cv[pos] = v[b];
+        cr[pos] = r[b];
+      }
+      have += __popc(ball);
+      __syncwarp();
+      if (have >= 32) {
+        merge_into<KW>(lv, lr, cv[lane], cr[lane], k, lane);
+        have -= 32;
+        const float mv = cv[32 + lane];
+        const int mr = cr[32 + lane];
+        __syncwarp();
+        if (lane < have) {
+          cv[lane] = mv;
+          cr[lane] = mr;
+        }
+        __syncwarp();
+      }
+    }
+  }
+  if (have > 0) {
+    merge_into<KW>(lv, lr, lane < have ? cv[lane] : -INFINITY,
+                   lane < have ? cr[lane] : INT_MAX, k, lane);
+  }
+  for (int i = lane; i < k; i += 32) {
+    const bool filled = lr[i] != INT_MAX;
+    out_vals[(size_t)q * k + i] = filled ? lv[i] : NEG_INF_F;
+    out_rows[(size_t)q * k + i] = filled ? lr[i] : -1;
+  }
+}
+
+typedef void (*KernelFn)(const CUtensorMap, const float*, const float*, float*,
+                         int*, unsigned*, int, int, int, int, int, int, int);
+
+// The kernel for (d, k), its block size, ring depth and shared memory:
+// two consumer warpgroups where their lists leave room for 3 stages,
+// else one, with as many stages as fit up to MAX_STAGES; no kernel if
+// not even MIN_STAGES fit.
+struct Config {
+  KernelFn fn;
+  int wgs, threads, stages, smem;
+};
+
+template <int KW>
+KernelFn kernel_for(int wgs) {
+  return wgs == 2 ? topk_scan_kernel<KW, 2> : topk_scan_kernel<KW, 1>;
+}
+
+Config find_config(int dev, int d, int k) {
+  Config cfg = {nullptr, 0, 0, 0, 0};
+  int optin = 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess) {
+    return cfg;
+  }
+  for (int wgs = 2; wgs >= 1; --wgs) {
+    for (int s = MAX_STAGES; s >= (wgs == 2 ? 3 : MIN_STAGES); --s) {
+      const int bytes = layout(d, k, s, wgs).bytes;
+      if (bytes <= optin) {
+        const int kw = (k + 31) / 32;
+        cfg.fn = kw == 1   ? kernel_for<1>(wgs)
+                 : kw == 2 ? kernel_for<2>(wgs)
+                           : kernel_for<4>(wgs);
+        cfg.wgs = wgs;
+        cfg.threads = wgs * 128 + 32;
+        cfg.stages = s;
+        cfg.smem = bytes;
+        if (cudaFuncSetAttribute(cfg.fn,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 bytes) != cudaSuccess) {
+          cfg.fn = nullptr;
+        }
+        return cfg;
+      }
+    }
+  }
+  return cfg;
+}
+
+// find_config for the current device, kept for the last (device, d, k)
+// each host thread asked about: a launch costs no attribute calls.
+Config pick_config(int d, int k) {
+  thread_local int last_dev = -1, last_d = 0, last_k = 0;
+  thread_local Config last = {nullptr, 0, 0, 0, 0};
+  int dev = 0;
+  if (d <= 0 || k < 1 || k > MAX_K || cudaGetDevice(&dev) != cudaSuccess) {
+    return Config{nullptr, 0, 0, 0, 0};
+  }
+  if (dev != last_dev || d != last_d || k != last_k) {
+    last = find_config(dev, d, k);
+    last_dev = dev;
+    last_d = d;
+    last_k = k;
+  }
+  return last;
+}
+
+// cuTensorMapEncodeTiled, fetched from the driver at run time.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
+  }
+  return fn;
 }
 
 }  // namespace
 
 extern "C" {
 
-int topk_scan_chunk_rows() { return CHUNK_ROWS; }
+int topk_scan_tile_rows() { return TN; }
+
+int topk_scan_block_queries() { return QB; }
 
 int topk_scan_max_k() { return MAX_K; }
 
-// Launches the scan on ``stream``. Returns 0 or the cudaError_t of the
-// attribute call or the launch (cudaGetLastError right after it).
+// u32 words of scratch a launch takes: each query's bound and pool.
+int topk_scan_scratch_words(int nq, int n_slices) {
+  return nq * (1 + 2 * POOL_TOP * n_slices);
+}
+
+// Lists the scan writes per query and slice for (d, k): one per consumer
+// warpgroup.
+int topk_scan_lists_per_slice(int d, int k) { return pick_config(d, k).wgs; }
+
+// Blocks of this kernel the card holds at once for (d, k); 0 if one
+// block's shared memory (resident queries, ring, lists) does not fit.
+int topk_scan_resident_blocks(int d, int k) {
+  const Config cfg = pick_config(d, k);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cfg.fn == nullptr || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cfg.fn,
+                                                    cfg.threads, cfg.smem) !=
+          cudaSuccess) {
+    return 0;
+  }
+  return per_sm * sms;
+}
+
+// Launches the scan on ``stream`` over n_slices slices of slice_rows
+// rows (a multiple of the tile; the last slice may be short), writing
+// topk_scan_lists_per_slice() lists a slice, after zeroing ``bounds``
+// (topk_scan_scratch_words() of u32 scratch). Returns 0 or a cudaError_t
+// (a tensor-map failure as cudaErrorUnknown).
 int topk_scan_launch(const void* emb, const void* queries, const void* bias,
-                     void* out_vals, void* out_rows, int n, int d, int nq,
-                     int k, int n_chunks, void* stream) {
+                     void* out_vals, void* out_rows, void* bounds, int n,
+                     int d, int nq, int k, int n_slices, int slice_rows,
+                     void* stream) {
   if (n <= 0 || nq <= 0 || k < 1 || k > MAX_K || d <= 0 || d % 8 != 0 ||
-      n_chunks != (n + CHUNK_ROWS - 1) / CHUNK_ROWS || n_chunks > 65535) {
+      slice_rows <= 0 || slice_rows % TN != 0 ||
+      n_slices != (n + slice_rows - 1) / slice_rows || n_slices > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  const int smem = STAGE_BYTES + TN * 4 + QB * k * 8;
-  cudaError_t err = cudaFuncSetAttribute(
-      topk_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const Config cfg = pick_config(d, k);
+  if (cfg.fn == nullptr) return (int)cudaErrorInvalidValue;
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorUnknown;
+
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)n};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)KC, (cuuint32_t)TN};
+  const cuuint32_t elem[2] = {1, 1};
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+             const_cast<void*>(emb), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+    return (int)cudaErrorUnknown;
+  }
+  cudaError_t err = cudaMemsetAsync(
+      bounds, 0, (size_t)topk_scan_scratch_words(nq, n_slices) * 4,
+      (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((nq + QB - 1) / QB, n_chunks);
-  topk_scan_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(emb),
-      static_cast<const float*>(queries), static_cast<const float*>(bias),
-      static_cast<float*>(out_vals), static_cast<int*>(out_rows), n, d, nq, k,
-      n_chunks);
+  dim3 grid((nq + QB - 1) / QB, n_slices);
+  cfg.fn<<<grid, cfg.threads, cfg.smem, (cudaStream_t)stream>>>(
+      map, static_cast<const float*>(queries), static_cast<const float*>(bias),
+      static_cast<float*>(out_vals), static_cast<int*>(out_rows),
+      static_cast<unsigned*>(bounds), n, d, nq, k, n_slices, slice_rows,
+      cfg.stages);
+  return (int)cudaGetLastError();
+}
+
+// Launches the merge of a scan's lists into out_vals / out_rows
+// ([Q, k]; unfilled slots (NEG_INF, -1)) on ``stream``.
+int topk_merge_launch(const void* part_vals, const void* part_rows,
+                      const void* bounds, void* out_vals, void* out_rows,
+                      int nq, int n_lists, int k, void* stream) {
+  if (nq <= 0 || n_lists <= 0 || k < 1 || k > MAX_K) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int kw = (k + 31) / 32;
+  void (*fn)(const float*, const int*, const unsigned*, float*, int*, int, int,
+             int) = kw == 1   ? topk_merge_kernel<1>
+                    : kw == 2 ? topk_merge_kernel<2>
+                              : topk_merge_kernel<4>;
+  fn<<<(nq + MERGE_WARPS - 1) / MERGE_WARPS, MERGE_WARPS * 32, 0,
+       (cudaStream_t)stream>>>(
+      static_cast<const float*>(part_vals), static_cast<const int*>(part_rows),
+      static_cast<const unsigned*>(bounds), static_cast<float*>(out_vals),
+      static_cast<int*>(out_rows), nq, n_lists, k);
   return (int)cudaGetLastError();
 }
 

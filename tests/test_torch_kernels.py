@@ -60,7 +60,7 @@ def _assert_same_topk(E, q, bias, k, tol=1e-5):
 @pytest.mark.parametrize(
     "n,d,nq,k",
     [(5000, 64, 70, 32), (2048 * 3 + 77, 128, 3, 128), (300, 768, 1, 1),
-     (20000, 768, 256, 32)],
+     (20000, 768, 256, 32), (20000, 768, 100, 48), (3000, 104, 5, 8)],
 )
 def test_topk_scan_matches_plain(cuda, n, d, nq, k):
     E = torch.from_numpy(_rand(n, d)).to(torch.bfloat16).to(cuda)
@@ -87,6 +87,95 @@ def test_topk_scan_ties_and_all_masked(cuda):
     v1, i1 = ttopk.masked_topk(Et, q, bias, 8)
     v0, i0 = ttopk.topk_reference(Et, q, bias, 8)
     assert torch.equal(i1, i0) and bool((v1 <= NEG_INF / 2).all())
+
+
+def _last_slice_of_one_row(nq, d, k, device):
+    """An N whose last kernel slice holds exactly one row."""
+    for tiles in range(2, 4096):
+        n = tiles * 128 + 1
+        _s, rows = ttopk.kernel_slices(n, nq, d, k, device)
+        if n % rows == 1:
+            return n
+    raise AssertionError("no N with a one-row last slice")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dup_other_slice", "identical_rows",
+                                  "below_one_tile", "one_past_slice",
+                                  "q_ragged_k1", "k128"])
+def test_topk_scan_slice_edges(cuda, case):
+    """Edges of the slice walk: ties across slices and inside one, a
+    corpus smaller than a tile, a one-row last slice, Q not a multiple of
+    the 64-query block, and the smallest and largest k."""
+    d, nq, k, n = 128, 5, 16, 5000
+    if case == "below_one_tile":
+        n = 77
+    elif case == "one_past_slice":
+        d, nq, k = 64, 256, 32
+        n = _last_slice_of_one_row(nq, d, k, cuda)
+    elif case == "q_ragged_k1":
+        nq, k = 70, 1
+    elif case == "k128":
+        d, nq, k, n = 768, 70, 128, 20000
+    E = _rand(n, d)
+    bias = torch.zeros(n, device=cuda)
+    if case == "dup_other_slice":
+        n = 50000
+        E = _rand(n, d)
+        E[n // 2] = E[10]
+        bias = torch.zeros(n, device=cuda)
+        n_slices, rows = ttopk.kernel_slices(n, 2, d, 12, cuda)
+        assert n_slices > 1 and 10 // rows != (n // 2) // rows
+        Et = torch.from_numpy(E).to(torch.bfloat16).to(cuda)
+        q = Et[10:12].float()
+        v1, i1 = ttopk.masked_topk(Et, q, bias, 12)
+        v0, i0 = ttopk.topk_reference(Et, q, bias, 12)
+        assert torch.equal(i1, i0) and i1[0, :2].tolist() == [10, n // 2]
+        return
+    if case == "identical_rows":
+        E = np.repeat(_rand(1, d), n, axis=0)
+        Et = torch.from_numpy(E).to(torch.bfloat16).to(cuda)
+        q = torch.from_numpy(_rand(nq, d, seed=1)).to(cuda)
+        v1, i1 = ttopk.masked_topk(Et, q, bias, k)
+        v0, i0 = ttopk.topk_reference(Et, q, bias, k)
+        want = torch.arange(k, dtype=torch.int32, device=cuda).expand(nq, k)
+        assert torch.equal(i1, want) and torch.equal(i0, want)
+        assert (v1 - v0).abs().max().item() < 1e-5
+        return
+    bias[::9] = NEG_INF
+    Et = torch.from_numpy(E).to(torch.bfloat16).to(cuda)
+    q = torch.from_numpy(_rand(nq, d, seed=1)).to(cuda)
+    _assert_same_topk(Et, q, bias, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,lists", [(1, 7), (32, 66), (128, 3), (24, 40)])
+def test_topk_merge_matches_plain(cuda, k, lists):
+    """The merge kernel vs merge_partials on random sorted lists with
+    never-filled slots, masked scores and equal scores across lists."""
+    rng = np.random.default_rng(k + lists)
+    nq = 9
+    vals = rng.normal(0, 0.1, (nq, lists, k)).astype(np.float32)
+    vals[:, ::3, -k // 3:] = NEG_INF                  # masked rows
+    vals[:, 1, : k // 2 + 1] = vals[:, 0, : k // 2 + 1]  # ties across lists
+    rows = rng.permutation(nq * lists * k * 4)[: nq * lists * k]
+    rows = rows.reshape(nq, lists, k).astype(np.int32)
+    vals[:, 2::5, k // 2:] = -np.inf                  # never filled
+    rows[:, 2::5, k // 2:] = -1
+    v = torch.from_numpy(vals).to(cuda)
+    r = torch.from_numpy(rows).to(cuda)
+    # Sort everything, then cut into lists: each list sorted, in order.
+    order = ttopk.lexsort_desc(
+        v.reshape(nq, -1), torch.where(r < 0, 2**31 - 1, r).reshape(nq, -1))
+    v = v.reshape(nq, -1).gather(1, order).reshape(nq, lists, k)
+    r = r.reshape(nq, -1).gather(1, order).reshape(nq, lists, k)
+    bounds = torch.zeros(nq, dtype=torch.int32, device=cuda)
+    before = ttopk.LAUNCHES["topk_merge"]
+    got_v, got_r = ttopk.merge_slices(v, r, bounds, k)
+    want_v, want_r = ttopk.merge_partials(v, r, k)
+    torch.cuda.synchronize()
+    assert ttopk.LAUNCHES["topk_merge"] == before + 1
+    assert torch.equal(got_r, want_r) and torch.equal(got_v, want_v)
 
 
 @pytest.mark.cuda

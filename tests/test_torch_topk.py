@@ -118,3 +118,143 @@ def test_wrapper_rejects(bad):
         q = torch.zeros((2, 8))
     with pytest.raises(ValueError):
         ttopk.masked_topk(E, q, b, k)
+
+
+# ---------------------------------------------------------------------------
+# The host half of the CUDA scan: the slice geometry and the merge of the
+# per-slice lists (``merge_partials``, the plain version of the merge
+# kernel), held against the plain top-k over the whole corpus.
+# ---------------------------------------------------------------------------
+
+def _slice_lists(E, q, bias, k, slice_rows, prune=None):
+    """Per-slice lists as the kernel writes them: each slice's top-k of
+    the plain version's scores (one matmul over the whole corpus, so a
+    row scores the same in every test), rows global, never-filled slots
+    (-inf, -1). ``prune`` empties entries strictly below that bound, as
+    the kernel's shared bound may."""
+    scores = q.to(E.dtype).float() @ E.float().T + bias[None, :]
+    vals, rows = [], []
+    for start in range(0, E.shape[0], slice_rows):
+        v, r = ttopk.stable_topk(scores[:, start:start + slice_rows], k)
+        short = k - v.shape[1]
+        v = torch.nn.functional.pad(v, (0, short), value=float("-inf"))
+        r = torch.nn.functional.pad(r + start, (0, short), value=-1)
+        if prune is not None:
+            cut = v < prune[:, None]
+            v, r = v.masked_fill(cut, float("-inf")), r.masked_fill(cut, -1)
+        vals.append(v)
+        rows.append(r)
+    return torch.stack(vals, 1), torch.stack(rows, 1).to(torch.int32)
+
+
+def _data(n, d, nq, seed, masked=0.0):
+    rng = np.random.default_rng(seed)
+    E = torch.from_numpy(_rand(n, d, seed)).to(torch.bfloat16)
+    q = torch.from_numpy(_rand(nq, d, seed + 1))
+    bias = torch.zeros(n)
+    bias[torch.from_numpy(rng.random(n) < masked)] = NEG_INF
+    return E, q, bias
+
+
+@pytest.mark.parametrize("k", [1, 32, 128])
+@pytest.mark.parametrize("n,slice_rows", [(1000, 128), (1000, 384),
+                                          (3001, 640), (130, 128),
+                                          (5000, 5120)])
+def test_merge_partials_matches_plain(k, n, slice_rows):
+    """Random slices at several S, ragged last slices, k up to past N."""
+    E, q, bias = _data(n, 64, 5, seed=n + k, masked=0.1)
+    pv, pr = _slice_lists(E, q, bias, k, slice_rows)
+    assert pv.shape[1] == -(-n // slice_rows)
+    got_v, got_r = ttopk.merge_partials(pv, pr, k)
+    want_v, want_r = ttopk.topk_reference(E, q, bias, k)
+    assert torch.equal(got_r, want_r)
+    assert torch.equal(got_v, want_v)
+
+
+@pytest.mark.parametrize("k", [1, 32, 128])
+def test_merge_partials_pruned_slices(k):
+    """Entries below the k-th score may be missing from any slice (the
+    kernel's shared bound drops them): the merge is still exact."""
+    E, q, bias = _data(2000, 32, 4, seed=7)
+    want_v, want_r = ttopk.topk_reference(E, q, bias, k)
+    pv, pr = _slice_lists(E, q, bias, k, 256, prune=want_v[:, -1])
+    assert bool((pr < 0).any()) or k == 1
+    got_v, got_r = ttopk.merge_partials(pv, pr, k)
+    assert torch.equal(got_r, want_r) and torch.equal(got_v, want_v)
+
+
+def test_merge_partials_interleaved_lists():
+    """Lists need not ascend by row: two lists per slice over alternate
+    tiles, as the kernel's two consumer warpgroups keep them."""
+    E, q, bias = _data(3000, 32, 4, seed=11, masked=0.2)
+    E[130:140] = E[0:10]             # ties between the two lists of a slice
+    bias[:140] = 0.0
+    q = torch.cat([E[0:2].float(), q[2:]])
+    tiles = torch.arange(3000) // 128
+    vals, rows = [], []
+    for start in range(0, 3000, 512):
+        for parity in (0, 1):
+            keep = torch.zeros(3000, dtype=torch.bool)
+            keep[start:start + 512] = True
+            keep &= tiles % 2 == parity
+            masked_bias = torch.where(keep, bias, torch.tensor(float("-inf")))
+            v, r = _slice_lists(E, q, masked_bias, 16, 3000)
+            vals.append(v)
+            rows.append(r.masked_fill(v == float("-inf"), -1))
+    got_v, got_r = ttopk.merge_partials(torch.cat(vals, 1), torch.cat(rows, 1),
+                                        16)
+    want_v, want_r = ttopk.topk_reference(E, q, bias, 16)
+    assert torch.equal(got_r, want_r) and torch.equal(got_v, want_v)
+    assert got_r[0, :2].tolist() == [0, 130]
+
+
+def test_merge_partials_ties_across_a_slice_boundary():
+    """Equal scores on both sides of a boundary: the lower row first."""
+    E, q, _ = _data(1024, 32, 2, seed=3)
+    E[300:310] = E[250:260]          # slice 0 (0..255) and slice 1
+    E[700:705] = E[250:255]          # and slice 2
+    q = E[250:252].float()
+    bias = torch.zeros(1024)
+    pv, pr = _slice_lists(E, q, bias, 16, 256)
+    got_v, got_r = ttopk.merge_partials(pv, pr, 16)
+    want_v, want_r = ttopk.topk_reference(E, q, bias, 16)
+    assert torch.equal(got_r, want_r)
+    assert got_r[0, :3].tolist() == [250, 300, 700]
+
+
+def test_merge_partials_masked_and_empty_slices():
+    """Whole slices masked (NEG_INF, real rows) sort before never-filled
+    slots (-inf, -1), which come out as (NEG_INF, -1)."""
+    E, q, _ = _data(600, 32, 3, seed=5)
+    bias = torch.zeros(600)
+    bias[:256] = NEG_INF             # slice 0 all masked
+    bias[512:] = NEG_INF             # the short last slice too
+    pv, pr = _slice_lists(E, q, bias, 128, 256)
+    got_v, got_r = ttopk.merge_partials(pv, pr, 128)
+    want_v, want_r = ttopk.topk_reference(E, q, bias, 128)
+    assert torch.equal(got_r, want_r) and torch.equal(got_v, want_v)
+    # k past N: the tail is (NEG_INF, -1), after the masked rows.
+    pv, pr = _slice_lists(E[:100], q, torch.full((100,), NEG_INF), 128, 64)
+    got_v, got_r = ttopk.merge_partials(pv, pr, 128)
+    assert got_r[:, :100].tolist() == [list(range(100))] * 3
+    assert bool((got_r[:, 100:] == -1).all())
+    assert bool((got_v == NEG_INF).all())
+
+
+@pytest.mark.parametrize("n,qb,resident", [
+    (262_144, 4, 132), (1 << 20, 4, 132), (200_000, 1, 132), (77, 2, 132),
+    (5000, 2, 264), (128 * 40 + 1, 4, 132), (10_000_000, 300, 132),
+    (1 << 24, 1, 2 ** 20),
+])
+def test_slice_geometry_covers_every_row_once(n, qb, resident):
+    s, rows = ttopk.slice_geometry(n, qb, tile_rows=128,
+                                   resident_blocks=resident)
+    assert rows % 128 == 0 and 1 <= s <= 65535
+    starts = [i * rows for i in range(s)]
+    stops = [min(n, a + rows) for a in starts]
+    assert starts[0] == 0 and stops[-1] == n
+    assert all(b == a2 for b, a2 in zip(stops, starts[1:]))   # no gap
+    assert all(a < b for a, b in zip(starts, stops))          # none empty
+    assert s * qb <= max(resident, qb)                        # one wave
+    if n >= 128 * resident:                                   # fills it
+        assert s >= min(65535, max(1, resident // qb)) // 2
