@@ -41,7 +41,10 @@ Then the kernels line ({"kernels": [...]}), the nvidia-smi line, and
 last {"ok": true, "device": {...}}. A kernel's ``ms`` (and the plain
 and library times beside it) is CUDA-event time over 20 calls in a row
 after warm-up, divided by 20; ``ms_single`` is the median of 20 calls
-timed one by one, host launch overhead included. ``--profile PATH``
+timed one by one, host launch overhead included; ``device_ms`` (and
+``library_device_ms``) the device time of the kernels one call
+launches, from torch.profiler over 20 calls: the card's busy time
+where the host cannot keep 20 short calls back to back. ``--profile PATH``
 also traces one warm batch (table in PATH) and one encoder forward
 (table in PATH_encoder).
 """
@@ -368,8 +371,7 @@ def scan_row(ttopk, emb, q, bias, k, peaks, err):
         {"N": n, "d": d, "Q": nq, "k": k}, err,
         lambda: ttopk.masked_topk(emb, q, bias, k),
         time_ms(lambda: ttopk.topk_reference(emb, q, bias, k), reps=5),
-        time_ms(lambda: torch.topk(torch.matmul(q16, emb.T).float() + bias,
-                                   k)),
+        lambda: torch.topk(torch.matmul(q16, emb.T).float() + bias, k),
         n * d * 2 + nq * d * 4 + n * 4 + nq * k * 8,
         2.0 * nq * n * d, peaks[0], peaks[1])
     row["scan_ms"] = time_ms(lambda: ttopk.scan_partials(emb, q, bias, k))
@@ -395,7 +397,7 @@ def merge_row(ttopk, emb, q, bias, k, peaks):
         lambda: ttopk.merge_slices(part_vals, part_rows, bounds, k),
         time_ms(lambda: ttopk.merge_partials(part_vals, part_rows, k)),
         # One call, the same top-k up to the order of equal scores.
-        time_ms(lambda: torch.topk(flat, k)),
+        lambda: torch.topk(flat, k),
         nq * lists * k * 8 + nq * 4 + nq * k * 8, 0.0, peaks[0], peaks[1])
 
 
@@ -432,9 +434,27 @@ def kernel_phase(ttopk, store, q_dev, peaks):
     return serving, big_row, merge
 
 
-def kernel_row(name, source, replaces, shape, err, fn, plain_ms, library_ms,
+def device_ms(fn, reps: int = 20) -> float:
+    """The card's busy time for one call of ``fn``: the device time of
+    every kernel it launches over ``reps`` calls (torch.profiler), over
+    ``reps``. Unlike ``time_ms`` it leaves out the gaps where the card
+    waits for the host between short calls."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == cuda) / reps / 1e3
+
+
+def kernel_row(name, source, replaces, shape, err, fn, plain_ms, library,
                bytes_moved, ops, bw, op_peak):
-    """One kernel's numbers: ``fn`` calls its wrapper; the bound is the
+    """One kernel's numbers: ``fn`` calls its wrapper, ``library`` the one
+    PyTorch call that computes the same function; the bound is the
     larger of bytes over the memory rate and operations over the peak
     rate of their type."""
     t_bytes = bytes_moved / bw * 1e3
@@ -448,8 +468,10 @@ def kernel_row(name, source, replaces, shape, err, fn, plain_ms, library_ms,
         "max_abs_err": err,
         "ms": time_ms(fn),
         "ms_single": time_single_ms(fn),
+        "device_ms": device_ms(fn),
         "plain_ms": plain_ms,
-        "library_ms": library_ms,
+        "library_ms": time_ms(library),
+        "library_device_ms": device_ms(library),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": bytes_moved,
@@ -490,7 +512,7 @@ def epilogue_kernels(tef, peaks):
         "classmate_rag_tpu/ops/encoder_fused.py:104", {"N": n, "F": f}, err,
         lambda: tef.bias_gelu(y, b),
         time_ms(lambda: tef.bias_gelu_reference(y, b)),
-        time_ms(lambda: F.gelu(y + b).to(torch.bfloat16)),
+        lambda: F.gelu(y + b).to(torch.bfloat16),
         n * f * (4 + 2) + 4 * f,
         5.0 * n * f,          # add, 3 multiplies, erfc counted as one
         bw, f32_peak)
@@ -512,7 +534,7 @@ def epilogue_kernels(tef, peaks):
         "classmate_rag_tpu/ops/encoder_fused.py:145", {"N": n, "H": h}, err,
         lambda: tef.residual_ln(*args, eps=1e-5),
         time_ms(lambda: tef.residual_ln_reference(*args, eps=1e-5)),
-        time_ms(lambda: F.layer_norm(resid + y + b, (h,), gg, beta, 1e-5)),
+        lambda: F.layer_norm(resid + y + b, (h,), gg, beta, 1e-5),
         3 * n * h * 4 + 3 * h * 4,
         10.0 * n * h,         # 2 adds, 2 reduction passes, normalise
         bw, f32_peak)
@@ -520,17 +542,18 @@ def epilogue_kernels(tef, peaks):
 
 
 def flash_kernel(tatt, peaks):
-    """flash_attn at the encoder's (B, T) of buckets 512 and 128, with
-    per-row lengths from 1 to T and rows whose last key tiles are all
-    padding; returns the (B = 128, T = 128) row (the bucket the passage
-    ingest runs most) and both shapes' numbers."""
+    """flash_attn at the encoder's (B, T) of the three buckets the flash
+    gate takes (512, 256, 128), with per-row lengths from 1 to T and rows
+    whose last key tiles are all padding; returns the (B = 128, T = 128)
+    row (the bucket the passage ingest runs most) and every shape's
+    numbers."""
     import torch.nn.functional as F
 
     bw, bf16_peak, _f32 = peaks
     nh, hd = 12, 64
     rng = np.random.default_rng(12)
     rows = {}
-    for b, t in ((32, 512), (128, 128)):
+    for b, t in ((32, 512), (64, 256), (128, 128)):
         qkv = rng.normal(0, 1.0, (b, t, 3, nh, hd)).astype(np.float32)
         qkv[:, :, 2] = rng.uniform(-1, 1, (b, t, nh, hd))
         qkv = torch.from_numpy(qkv).to(torch.bfloat16).cuda()
@@ -558,14 +581,18 @@ def flash_kernel(tatt, peaks):
              "real_keys": real}, err,
             lambda: tatt.flash_attention(q, k, v, mask, 0.125),
             time_ms(lambda: tatt.attention_reference(q, k, v, mask, 0.125)),
-            time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=keep)),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   attn_mask=keep),
             # q read and out written for every row; k and v only where
             # a key is real (the rest weighs exactly 0); the mask.
             2 * b * t * h * 2 + 2 * real * h * 2 + b * t * 4,
             # QK^T and PV over the real keys of every query row.
             4.0 * nh * hd * t * real,
             bw, bf16_peak)
+        # The persistent grid: (batch row, head, 128-query) items walked
+        # by the CTAs the card holds at once.
+        rows[(b, t)].update(items=b * nh * -(-t // 128),
+                            resident_ctas=tatt.resident_ctas())
     return rows[(128, 128)], list(rows.values())
 
 

@@ -6,11 +6,12 @@ with a plain C interface, for ``sm_90a``:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o build/<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source, so an edited kernel
-rebuilds and an unchanged one loads from ``ops/build/``. Nothing builds
-when a module is imported: the first launch builds, or ``build_all``
-builds every source at once (one nvcc process each, all started
-together).
+The library name carries a hash of the source and of the shared
+headers (``csrc/*.cuh``, included by the sources), so an edited kernel
+or header rebuilds and an unchanged one loads from ``ops/build/``.
+Nothing builds when a module is imported: the first launch builds, or
+``build_all`` builds every source at once (one nvcc process each, all
+started together).
 """
 
 from __future__ import annotations
@@ -51,7 +52,13 @@ def sources() -> List[str]:
 
 
 def _lib_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` lives: named by a hash of
+    the source, every shared header (``csrc/*.cuh``) and the flags, so an
+    edit to any of them builds anew."""
     digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
@@ -81,11 +88,15 @@ def _finish(name: str, proc, tmp: Path, out: Path) -> str:
 
 def build_all() -> Dict[str, str]:
     """Build every missing library in parallel; returns each source's
-    ptxas report (registers, shared memory, spills) or "" if cached."""
+    ptxas report (registers, shared memory, spills), a cached library's
+    from the log saved beside it ("" if there is none)."""
     with _lock:
         todo = [n for n in sources() if not _lib_path(n).exists()]
         started = [(n, *_start(n)) for n in todo]
-        logs = {n: "" for n in sources()}
+        logs = {}
+        for n in sources():
+            saved = _lib_path(n).with_suffix(".log")
+            logs[n] = saved.read_text() if saved.exists() else ""
         for n, proc, tmp, out in started:
             logs[n] = _finish(n, proc, tmp, out)
         return logs

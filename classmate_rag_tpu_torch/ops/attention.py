@@ -12,8 +12,9 @@ type, which the reference casts it to at once).
   device when the flash gate is off, the CPU always, and is the
   yardstick the kernel is held against on the card.
 - ``flash_attention``: the wrapper. CPU tensors take the plain version;
-  CUDA tensors launch ``csrc/flash_attn.cu`` (head_dim 64 only), or
-  raise.
+  CUDA tensors launch ``csrc/flash_attn.cu`` (head_dim 64 only; TMA,
+  ``wgmma`` and a persistent grid of ``resident_ctas()`` blocks, each
+  walking (batch row, head, 128-query tile) items), or raise.
 
 The TPU library kernel this replaces took the mask as segment ids,
 which also masks pad QUERY rows; the key-padding form leaves those rows
@@ -77,11 +78,19 @@ def _launcher():
     return fn
 
 
+def resident_ctas() -> int:
+    """Blocks of the kernel's persistent grid the current card holds at
+    once (CUDA only; builds the kernel if needed)."""
+    return int(_build.load("flash_attn").flash_attn_resident_ctas())
+
+
 def flash_attn(q, k, v, mask, sm_scale):
     """Launch the CUDA kernel (CUDA only)."""
     b, t, nh, hd = q.shape
     if hd != HEAD_DIM:
         raise ValueError(f"flash_attn takes head_dim {HEAD_DIM}, got {hd}")
+    if not sm_scale > 0:
+        raise ValueError(f"flash_attn takes sm_scale > 0, got {sm_scale}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.dtype != torch.bfloat16:
             raise TypeError(f"{name} must be bfloat16, got {x.dtype}")

@@ -231,18 +231,29 @@ def test_residual_ln_matches_plain(cuda, n, h):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t,lengths", [
-    (512, [40, 512, 1, 300]),      # 7 of 8 key tiles all padding in row 0
-    (128, [128, 1, 64, 65, 100, 2, 127, 128]),
-    (100, [100, 3]),               # T not a multiple of the key tile
+@pytest.mark.parametrize("t,lengths,layout", [
+    (512, [40, 512, 1, 300], "fused"),   # 7 of 8 key tiles padding, row 0
+    (128, [128, 1, 64, 65, 100, 2, 127, 128], "fused"),
+    (100, [100, 3], "fused"),            # T cuts the key and query tiles
+    # Lengths on the 64-key tile edges, and a row with no real key.
+    (256, [63, 64, 65, 127, 128, 129, 256, 0], "fused"),
+    (256, [63, 64, 65, 127, 128, 129, 256, 0], "contiguous"),
+    (1, [1, 0], "fused"),                # one key, one query
+    (128, 48, "fused"),                  # more items than resident blocks
+    (512, 24, "contiguous"),
 ])
-def test_flash_attn_matches_plain(cuda, t, lengths):
+def test_flash_attn_matches_plain(cuda, t, lengths, layout):
     rng = np.random.default_rng(t)
+    if isinstance(lengths, int):         # that many rows, random lengths
+        lengths = rng.integers(0, t + 1, lengths)
+        lengths[:2] = (0, t)
     b, nh, hd = len(lengths), 12, 64
     qkv = rng.normal(0, 1.0, (b, t, 3, nh, hd)).astype(np.float32)
     qkv[:, :, 2] = rng.uniform(-1, 1, (b, t, nh, hd))
     qkv = torch.from_numpy(qkv).to(torch.bfloat16).to(cuda)
     q, k, v = qkv.unbind(2)            # the encoder's strided views
+    if layout == "contiguous":         # [B, T, heads, 64] each
+        q, k, v = (x.contiguous() for x in (q, k, v))
     mask = torch.from_numpy(
         (np.arange(t)[None, :] < np.asarray(lengths)[:, None])
         .astype(np.int32)).to(cuda)
@@ -254,6 +265,12 @@ def test_flash_attn_matches_plain(cuda, t, lengths):
     assert got.shape == (b, t, nh * hd) and got.dtype == torch.bfloat16
     assert bool(torch.isfinite(got.float()).all())
     assert (got.float() - want.float()).abs().max().item() <= 1e-2
+    # A row with no real key: the uniform softmax, the mean of V.
+    for r in np.flatnonzero(np.asarray(lengths) == 0):
+        mean_v = v[r].float().mean(dim=0).reshape(nh * hd)
+        assert (got[r].float() - mean_v).abs().max().item() <= 1e-2
+    if b >= 24:
+        assert b * nh * -(-t // 128) > tatt.resident_ctas() > 0
 
 
 @pytest.mark.cuda
