@@ -7,6 +7,7 @@ the E5-base encoder (full width, 12 layers, random weights from the
 model name) that ingests passages and encodes the questions it answers.
 
     python3 chip_smoke.py            # on a machine with one NVIDIA GPU
+    python3 chip_smoke.py --product-child DIR   # phase 8's child alone
 
 Phases, one JSON line each; any failure exits non-zero with no result:
 
@@ -36,6 +37,18 @@ Phases, one JSON line each; any failure exits non-zero with no result:
               before the ingest, read after the first ask); ids equal to
               the host-encode path's; recall@8 against the oracle fed the
               port's own vectors; encode, step and warm batch latency.
+8. product    the product path at bench.py's scale-2 size (200,000 chunks
+              of the slice corpus, d 768, stable_chunk_id ids, 10 chunks a
+              document, BM25_TERMS_PER_CHUNK 256, capacity 262,144): a
+              catalog JSONL and a saved store (with the persisted split
+              layout) in a temporary directory, then a child process
+              (--product-child DIR) that cold-starts get_runtime from it,
+              answers 2 + 32 zipf questions with ask_question, ingests and
+              persists one new document (a delta: the base files stay),
+              asks 16 more with no O(corpus) counter moving and rows equal
+              to a store loaded anew on the CPU, and serves three rounds
+              of 8 concurrent /asks, a /delete and /stats through
+              make_server.
 
 Then the kernels line ({"kernels": [...]}), the nvidia-smi line, and
 last {"ok": true, "device": {...}}. A kernel's ``ms`` (and the plain
@@ -84,6 +97,10 @@ ENC_CHUNKS = 8192      # passages the encoder phases ingest
 N_LONG = 32            # long texts (> 256 tokens: bucket 512)
 N_QUESTIONS = 256
 CPU_SUBSET = (16, 8, 4)  # queries, passages, long texts the CPU copy encodes
+PRODUCT_TERMS = 256    # BM25_TERMS_PER_CHUNK of the product phase
+CHUNKS_PER_DOC = 10
+PRODUCT_ASKS = 32
+PRODUCT_CPU_ASKS = 8   # asks held against a store loaded anew on the CPU
 
 # Published dense peaks (NVIDIA data sheets): memory bytes/s, bf16
 # tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
@@ -870,7 +887,7 @@ def ingest_ask_phase(enc, docs, rng, counts, knobs):
     with tempfile.TemporaryDirectory() as cache_dir:
         cached = CachingEmbedder(enc, cache_dir=cache_dir)
         store = IndexStore(DIM, slab_rows=4096, terms_per_chunk=128)
-        catalog = Catalog()
+        catalog = Catalog.load_or_create(Path(cache_dir) / "bm25")
         for i, cid in enumerate(ids):
             catalog.upsert(CatalogEntry(cid, texts[i], docs[i],
                                         chunk_meta(i)))
@@ -959,6 +976,341 @@ def ingest_ask_phase(enc, docs, rng, counts, knobs):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The product path (phase 8): persisted index → runtime → ask / add /
+# persist → server, in a child process as bench.py's product stage runs it
+# ---------------------------------------------------------------------------
+
+def product_build(root: Path, docs, emb) -> dict:
+    """A persisted product index in ``root``: the catalog JSONL (bm25/)
+    in the canonical on-disk format and a saved store (dense/), ids
+    ``stable_chunk_id`` over 10 chunks a document, as bench.py builds it."""
+    from classmate_rag_tpu_torch.index.catalog import Catalog
+    from classmate_rag_tpu_torch.index.store import IndexStore
+    from classmate_rag_tpu_torch.utils.ids import stable_chunk_id
+
+    t0 = time.perf_counter()
+    bm25 = root / "bm25"
+    bm25.mkdir(parents=True)
+    ids, metas = [], []
+    with (bm25 / "bm25_index.jsonl").open("w", encoding="utf-8") as f:
+        for i, toks in enumerate(docs):
+            d, c = divmod(i, CHUNKS_PER_DOC)
+            sp = f"/bench/doc_{d}.txt"
+            cid = stable_chunk_id(source_path=Path(sp), page=1,
+                                  chunk_index=c, course="bench", unit=None)
+            meta = {"course": "bench", "language": "en", "doc_type": "txt",
+                    "source_path": sp, "page": 1, "chunk_id": c}
+            f.write(json.dumps({"id": cid, "text": " ".join(toks),
+                                "tokens": toks, "metadata": meta},
+                               ensure_ascii=False) + "\n")
+            ids.append(cid)
+            metas.append(meta)
+    t_catalog = time.perf_counter() - t0
+    catalog = Catalog.load_or_create(bm25)
+    # The shape get_runtime() constructs, or the snapshot is refused.
+    store = IndexStore(DIM, root / "dense", slab_rows=4096,
+                       terms_per_chunk=PRODUCT_TERMS, device="cpu")
+    for s in range(0, len(docs), 8192):
+        e = min(s + 8192, len(docs))
+        store.upsert(ids[s:e], emb[s:e], docs[s:e], metas[s:e])
+    t_upsert = time.perf_counter() - t0 - t_catalog
+    store.save(catalog_fingerprint=catalog.fingerprint())
+    check((root / "dense" / "split.tf_head.npy").exists(),
+          "product: the split layout was not persisted")
+    out = {"catalog_s": t_catalog, "upsert_s": t_upsert,
+           "save_s": time.perf_counter() - t0 - t_catalog - t_upsert,
+           "capacity": store.capacity, "n_rows": store.n_rows,
+           "bytes": sum(p.stat().st_size for p in root.rglob("*")
+                        if p.is_file())}
+    return out
+
+
+def product_phase(docs, emb, counts, profile_path) -> dict:
+    """Build the persisted index, then run the child against it."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        build = product_build(root, docs[:CHUNKS], emb[:CHUNKS])
+        cmd = [sys.executable, str(Path(__file__).resolve()),
+               "--product-child", str(root)]
+        if profile_path:
+            cmd += ["--profile", profile_path]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=900)
+        child_s = time.perf_counter() - t0
+    report = None
+    for line in proc.stdout.splitlines():
+        if line.startswith("PRODUCT_CHILD_JSON:"):
+            report = json.loads(line[len("PRODUCT_CHILD_JSON:"):])
+        elif line.startswith("{"):
+            print(line, flush=True)         # the child's profile line
+    check(proc.returncode == 0 and report is not None,
+          f"product child failed (rc={proc.returncode}):\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    line = {"phase": "product", "build": build, "child_s": child_s,
+            **report}
+    emit(line)
+    return line
+
+
+def product_child(root: Path, profile_path) -> int:
+    """Cold-start the runtime from ``root``, ask, add, persist, ask again,
+    hold the asks against a CPU load of the persisted directory, serve.
+    Prints one ``PRODUCT_CHILD_JSON:`` line; any failed check raises."""
+    import os
+    import threading
+    import urllib.request
+
+    os.environ.update(
+        INDEX_DIR=str(root), BM25_DIR=str(root / "bm25"),
+        DENSE_DIR=str(root / "dense"), EMB_CACHE_DIR=str(root / "emb"),
+        EMBEDDING_BACKEND="hash", LLM_BACKEND="extractive",
+        BM25_TERMS_PER_CHUNK=str(PRODUCT_TERMS),
+    )
+    from classmate_rag_tpu_torch.index.catalog import Catalog
+    from classmate_rag_tpu_torch.index.store import IndexStore
+    from classmate_rag_tpu_torch.metadata import DocumentMetadata
+    from classmate_rag_tpu_torch.ops import topk as ttopk
+    from classmate_rag_tpu_torch.pipeline.ask import ask_question
+    from classmate_rag_tpu_torch.pipeline.ingest import ingest_file
+    from classmate_rag_tpu_torch.pipeline.runtime import get_runtime
+    from classmate_rag_tpu_torch.retrieval.hybrid import HybridRetriever
+    from classmate_rag_tpu_torch.serve import make_server
+    from classmate_rag_tpu_torch.utils.metrics import metrics
+
+    report: dict = {}
+    t0 = time.perf_counter()
+    rt = get_runtime(reload=True)
+    report["runtime_load_s"] = time.perf_counter() - t0
+    report["load_timings"] = rt.load_timings
+    report["n_rows"] = rt.store.n_rows
+    check(rt.store.device.type == "cuda", "product: runtime not on CUDA")
+    check(rt.warmup_thread is not None,
+          "product: no background warm-up at serving scale")
+    t0 = time.perf_counter()
+    rt.warmup_thread.join()
+    report["ready_s"] = time.perf_counter() - t0
+    report["after_warmup"] = counters(rt.store)
+
+    rng = np.random.default_rng(7)
+    vocab = [word(i) for i in range(5000)]
+    weights = 1.0 / np.arange(1, len(vocab) + 1)
+    weights /= weights.sum()
+
+    def question():
+        return "what about " + " ".join(
+            vocab[i] for i in rng.choice(len(vocab), size=4, p=weights))
+
+    def ask(q):
+        res = ask_question(question=q, filters=DocumentMetadata(), top_k=K,
+                           runtime=rt)
+        check(bool(res.answer), f"product: empty answer to {q!r}")
+        check(len(res.retrieved) >= 1, f"product: nothing retrieved: {q!r}")
+        return res
+
+    t0 = time.perf_counter()
+    ask(question())
+    report["first_ask_s"] = time.perf_counter() - t0
+    for _ in range(2):
+        ask(question())
+    for table in (ttopk.LAUNCHES,):
+        for name in table:
+            table[name] = 0
+    metrics.reset()  # the ask's own timers: "ask" and its "retrieve"
+    lat = []
+    asked = []
+    for _ in range(PRODUCT_ASKS):
+        q = question()
+        t0 = time.perf_counter()
+        ask(q)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        asked.append(q)
+    report["ask_launches"] = dict(ttopk.LAUNCHES)
+    check(ttopk.LAUNCHES["topk_scan"] == PRODUCT_ASKS,
+          f"product: topk_scan launched {ttopk.LAUNCHES['topk_scan']} "
+          f"times in {PRODUCT_ASKS} asks")
+    report["ask_ms"] = lat
+    report["ask_p50_ms"] = float(np.percentile(lat, 50))
+    report["ask_p95_ms"] = float(np.percentile(lat, 95))
+    snap = metrics.snapshot()
+    report["ask_parts_mean_ms"] = {
+        "ask": snap.get("ask_mean_ms"),
+        "retrieve": snap.get("retrieve_mean_ms"),
+        "retrieve_count": snap.get("retrieve_count", 0),
+    }
+    check(report["ask_parts_mean_ms"]["retrieve_count"] == PRODUCT_ASKS,
+          f"product: {snap.get('retrieve_count')} retrieves in "
+          f"{PRODUCT_ASKS} asks")
+    if profile_path:
+        emit(profile_batch(lambda: ask(asked[0]),
+                           f"{profile_path}_product",
+                           report["ask_p50_ms"], phase="profile_product"))
+
+    # ---- /add probe: one new document, then persist.
+    dirs = (Path(rt.cfg.bm25_dir), Path(rt.cfg.dense_dir))
+    files0 = {p: p.stat() for d in dirs for p in d.iterdir()}
+    before = counters(rt.store)
+    doc = root / "new_doc.txt"
+    new_words = ["quokka", "zeppelin", "marzipan", "xylophone"]
+    doc.write_text(
+        "A freshly added document about " + " ".join(new_words) + ". "
+        "It gives the product add probe more context to answer from.",
+        encoding="utf-8")
+    t0 = time.perf_counter()
+    added = ingest_file(path=doc, doc_meta=DocumentMetadata(course="bench"),
+                        runtime=rt)
+    report["add_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rt.persist()
+    report["persist_s"] = time.perf_counter() - t0
+    # bench.py's measure (size changes) and every byte of every file
+    # the add wrote (new, or rewritten in place).
+    delta, written, rewrote = 0, {}, False
+    for d in dirs:
+        for p in d.iterdir():
+            old, now = files0.get(p), p.stat()
+            if old is None:
+                delta += now.st_size
+            elif now.st_size != old.st_size:
+                delta += abs(now.st_size - old.st_size)
+            if old is None or (now.st_size, now.st_mtime_ns) != (
+                    old.st_size, old.st_mtime_ns):
+                written[p.name] = now.st_size
+                rewrote |= p.name in ("embeddings.npy", "bm25_index.jsonl",
+                                      "lexical.npz")
+    report["persist_delta_bytes"] = delta
+    report["persist_files_written"] = written
+    report["persist_rewrote_base"] = rewrote
+    check(not rewrote, "product: the persist rewrote a base file")
+    check(added.chunk_ids, "product: the new document gave no chunk")
+
+    # ---- asks after the add.
+    lat = []
+    after = []
+    for _ in range(17):
+        q = question()
+        t0 = time.perf_counter()
+        ask(q)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        after.append(q)
+    report["ask_after_add_first_ms"] = lat[0]
+    report["ask_after_add_p50_ms"] = float(np.percentile(lat[1:], 50))
+    new_q = "tell me about " + " ".join(new_words)
+    hit = ask(new_q)
+    check(added.chunk_ids[0] in [r["id"] for r in hit.retrieved],
+          "product: the new document's chunk was not retrieved")
+    report["after_add"] = counters(rt.store)
+    for name in ("device_full_uploads", "split_full_builds"):
+        check(report["after_add"][name] == before[name],
+              f"product: {name} moved across the add "
+              f"({before[name]} -> {report['after_add'][name]})")
+
+    # ---- the same asks against a store loaded anew on the CPU.
+    t0 = time.perf_counter()
+    cpu_store = IndexStore.load_or_create(
+        DIM, rt.cfg.dense_dir, Catalog.load_or_create(rt.cfg.bm25_dir),
+        slab_rows=rt.cfg.dense_slab_rows, terms_per_chunk=PRODUCT_TERMS,
+        device="cpu")
+    cpu_ret = dataclasses.replace(rt.retriever, store=cpu_store)
+    worst = 0.0
+    for q in after[:PRODUCT_CPU_ASKS - 1] + [new_q]:
+        got = rt.retriever.retrieve(question=q, top_k=K)
+        want = cpu_ret.retrieve(question=q, top_k=K)
+        check([r["id"] for r in got] == [r["id"] for r in want],
+              f"product: card and CPU load differ on {q!r}")
+        for x, y in zip(got, want):
+            for key in ("fused", "vector_distance", "bm25_score"):
+                a, b = x["scores"][key], y["scores"][key]
+                check((a is None) == (b is None), f"product: {key} None")
+                if a is not None:
+                    worst = max(worst, abs(a - b))
+    check(worst <= STEP_TOL, f"product: card vs CPU load score diff {worst}")
+    report["cpu_load"] = {"asks": PRODUCT_CPU_ASKS, "rows_equal": True,
+                          "max_score_diff": worst,
+                          "seconds": time.perf_counter() - t0,
+                          **counters(cpu_store)}
+    del cpu_store, cpu_ret
+
+    # ---- the server.
+    srv = make_server("127.0.0.1", 0, runtime=rt)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def call(route, payload=None):
+        data = None if payload is None else json.dumps(payload).encode()
+        req = urllib.request.Request(
+            base + route, data=data,
+            headers={"Content-Type": "application/json"},
+            method="GET" if payload is None else "POST")
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=120) as r:
+            body = json.loads(r.read())
+            return r.status, body, (time.perf_counter() - t0) * 1e3
+
+    def concurrent_asks():
+        """8 concurrent /asks, each answer held against ask_question's;
+        returns (ms per reply, micro-batches they made)."""
+        qs = [question() for _ in range(8)]
+        expect = [ask(q).answer for q in qs]
+        batches0 = metrics.snapshot().get("retrieve_batch_count", 0)
+        replies = [None] * len(qs)
+
+        def worker(i):
+            replies[i] = call("/ask", {"question": qs[i], "k": K})
+
+        workers = [threading.Thread(target=worker, args=(i,))
+                   for i in range(len(qs))]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=120)
+        batches = metrics.snapshot().get("retrieve_batch_count", 0) - batches0
+        for i, rep in enumerate(replies):
+            check(rep is not None and rep[0] == 200,
+                  f"product: /ask {i} failed: {rep}")
+            check(rep[1]["answer"] == expect[i],
+                  "product: /ask answer differs from ask_question's")
+        return [r[2] for r in replies], batches
+
+    try:
+        rounds = [concurrent_asks() for _ in range(3)]
+        gone = added.chunk_ids[0]
+        code, body, _ = call("/delete", {"ids": [gone]})
+        check(code == 200 and body["vector_deleted"] == 1,
+              f"product: /delete {code} {body}")
+        code, stats, _ = call("/stats")
+        check(code == 200, f"product: /stats {code}")
+        code, body, _ = call("/ask", {"question": new_q, "k": K})
+        check(code == 200 and gone not in [r["id"] for r in
+                                           body["retrieved"]],
+              "product: the deleted id came back")
+        report["server"] = {
+            "rounds_of_8": len(rounds),
+            "batches": [b for _ms, b in rounds],
+            "ask_ms": [ms for ms, _b in rounds],
+            "ask_p50_ms_by_round": [float(np.percentile(ms, 50))
+                                    for ms, _b in rounds],
+            "ask_p50_ms": float(np.percentile(
+                [x for ms, _b in rounds[1:] for x in ms], 50)),
+            "stats_maintenance": stats["maintenance"],
+        }
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    report["final"] = counters(rt.store)
+    print("PRODUCT_CHILD_JSON:" + json.dumps(report), flush=True)
+    return 0
+
+
+def counters(store) -> dict:
+    return {name: getattr(store, name) for name in (
+        "device_full_uploads", "split_full_builds",
+        "split_snapshot_restores", "df_full_builds")}
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -967,13 +1319,20 @@ def main() -> int:
                          "forward (slice configuration, bucket 128) with "
                          "torch.profiler, print 'profile' and "
                          "'profile_encoder' phase lines and write the "
-                         "per-op tables to PATH and PATH_encoder")
+                         "per-op tables to PATH and PATH_encoder (and "
+                         "one product ask's, 'profile_product', to "
+                         "PATH_product)")
+    ap.add_argument("--product-child", metavar="DIR",
+                    help="run only the product phase's child against the "
+                         "persisted index in DIR (bm25/, dense/)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    if args.product_child:
+        return product_child(Path(args.product_child), args.profile)
 
     from classmate_rag_tpu_torch.embeddings.hashing import HashingEmbedder
     from classmate_rag_tpu_torch.index.catalog import Catalog, CatalogEntry
@@ -1134,7 +1493,8 @@ def main() -> int:
           "rows_equal_to_exact_route": same_as_exact})
 
     # ---- 5. retriever -----------------------------------------------------
-    catalog = Catalog()
+    catalog_dir = tempfile.TemporaryDirectory()
+    catalog = Catalog.load_or_create(catalog_dir.name)
     for i, cid in enumerate(ids):
         catalog.upsert(CatalogEntry(cid, " ".join(docs[i]), docs[i],
                                     chunk_meta(i)))
@@ -1171,10 +1531,17 @@ def main() -> int:
     emit({"phase": "retriever", "questions": len(questions) + 1,
           "results": sum(len(g) for g in got), "bm25_hits": n_bm25,
           "filter": {"course": course}})
+    del catalog, cpu_store, gpu_ret, cpu_ret
+    catalog_dir.cleanup()
 
     # ---- 6. encoder, 7. ingest + ask --------------------------------------
     enc, enc_launches = encoder_phase(rng, docs, counts, peaks, args.profile)
     ingest_ask_phase(enc, docs, rng, counts, knobs)
+    del enc, store
+    torch.cuda.empty_cache()
+
+    # ---- 8. product ------------------------------------------------------
+    product_phase(docs, emb, counts, args.profile)
 
     line = []
     for row, n in ((kern, launches["topk_scan"]),

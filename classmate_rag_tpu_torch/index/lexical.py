@@ -135,14 +135,17 @@ def build_split_layout(
     head_bytes_budget: int,
     head_df_threshold: int,
     seg_cap: int = TAIL_SEG_CAP,
+    reserve: int = 0,
 ) -> Dict[str, Any]:
     """Partition the packed lexical matrix into the split-frequency BM25
     layout: a TERM-major dense u8 head matrix [C, cap] for high-df terms
     and term-sorted postings (rows/tfs + per-term offsets) for the tail.
 
-    Returns ``n_overflow`` > 0 when the head budget could not hold every
-    term above the df threshold (those fall to the tail as segmented
-    posting lists; r_cap stays capped at ``seg_cap``).
+    Pure numpy (IndexStore._sync_split and _full_save). Returns
+    ``n_overflow`` > 0 when the head budget could not hold every term
+    above the df threshold (those fall to the tail as SEGMENTED posting
+    lists — r_cap stays capped at ``seg_cap``, so overflow degrades
+    per-batch tail width, not the slice cost).
     """
     cap, width = term_ids.shape
     n_vocab = max(n_vocab, 1)
@@ -158,15 +161,20 @@ def build_split_layout(
     head_candidates = np.argsort(-df, kind="stable")
     head_terms = head_candidates[:max_head]
     head_terms = head_terms[df[head_terms] > head_df_threshold]
-    # Self-sizing: when more terms qualify than the byte budget holds,
-    # the effective threshold rises to the df spectrum's (max_head)-th
-    # value; df_threshold reports the derived cut.
+    # SELF-SIZING: when more terms qualify (df > threshold) than the
+    # byte budget can hold, the effective threshold rises to the df
+    # spectrum's (max_head)-th value — the head always holds exactly the
+    # heaviest terms the budget allows, and every term above the DERIVED
+    # threshold is in the head by construction. df_threshold reports the
+    # derived value so callers can see the corpus-adaptive cut.
     n_overflow = int((df > head_df_threshold).sum()) - len(head_terms)
     eff_threshold = int(head_df_threshold)
     if n_overflow > 0 and len(head_terms):
         eff_threshold = int(df[head_terms].min())
-    # Slot order is arbitrary for scoring; sorting by term id keeps the
-    # lut stable across small df drifts.
+    # Slot order is arbitrary for scoring; sorting by TERM ID (not df
+    # rank) keeps the lut stable across small df drifts, so the O(delta)
+    # sync COLUMN-scatters head-matrix updates instead of re-placing
+    # [C, N] whenever ingest reorders term frequencies.
     head_terms = np.sort(head_terms)
     c_pad = max(128, _round_up(len(head_terms), 128))
     lut = np.full(n_vocab, -1, dtype=np.int32)
@@ -190,10 +198,13 @@ def build_split_layout(
     r_cap = min(
         max(8, 1 << int(np.ceil(np.log2(max(max_rare, 1))))), seg_cap
     )
-    # Pad the postings by r_cap so every window [start, start + r_cap)
-    # lies inside the arrays.
+    # Pad the postings arrays by r_cap so every window [start, start +
+    # r_cap) lies inside them (the scorer clamps starts near the end).
+    # ``reserve`` adds an OVERLAY region right after the base postings —
+    # the O(delta) refresh (plan_tail_delta) appends new/updated rows'
+    # tail entries there between full rebuilds.
     p_base = len(post_rows)
-    p_pad = max(8, _round_up(p_base + r_cap, 4096))
+    p_pad = max(8, _round_up(p_base + reserve + r_cap, 4096))
     post_rows_pad = np.zeros(p_pad, dtype=np.int32)
     post_rows_pad[:p_base] = post_rows
     post_tfs_pad = np.zeros(p_pad, dtype=np.uint8)
@@ -225,6 +236,8 @@ def split_query_arrays(
     q_tids: np.ndarray,         # i32 [B, M], -1 padded
     q_counts: np.ndarray,       # f32 [B, M]
     r_cap: int = TAIL_SEG_CAP,
+    ov_offsets: Optional[np.ndarray] = None,  # i64 [V+1] overlay ranges
+    ov_start: int = 0,          # overlay region start in post arrays
 ) -> Dict[str, np.ndarray]:
     """Map [B, M] query term ids onto the batch's distinct head-term
     union and tail-term SEGMENT table.
@@ -234,12 +247,20 @@ def split_query_arrays(
     term's single column (``u_cols`` maps segment → index into
     ``t_tids``, the batch's distinct tail terms), so the [N, T] tail
     matrix is sized by distinct terms, not segments.
+
+    ``ov_offsets`` adds OVERLAY segments: per-term windows into the
+    overlay region at ``ov_start`` (plan_tail_delta), scattering into the
+    same term column as the base segments. The segment table is the JAX
+    package's, less the ``u_tids``/``u_occ``/``u_ov`` columns that only
+    its sharded path reads.
     """
     safe = np.maximum(q_tids, 0)
     slots = np.where(q_tids >= 0, lut[safe], -1).astype(np.int32)
     is_head = slots >= 0
-    lens = offsets[safe + 1] - offsets[safe]
-    is_rare = (~is_head) & (q_tids >= 0) & (lens > 0)
+    has_tail = offsets[safe + 1] - offsets[safe] > 0
+    if ov_offsets is not None:
+        has_tail |= ov_offsets[safe + 1] - ov_offsets[safe] > 0
+    is_rare = (~is_head) & (q_tids >= 0) & has_tail
 
     head_tids = (
         np.unique(q_tids[is_head]) if is_head.any()
@@ -256,13 +277,17 @@ def split_query_arrays(
     )
     t_tids = _pad_pow2(rare_tids, -1)
     seg_col, seg_start, seg_len = [], [], []
+    ranges = [(offsets, 0)]
+    if ov_offsets is not None:
+        ranges.append((ov_offsets, ov_start))
     for col, t in enumerate(rare_tids):
-        start = int(offsets[t])
-        ln = int(offsets[t + 1]) - start
-        for k in range(0, ln, r_cap):
-            seg_col.append(col)
-            seg_start.append(start + k)
-            seg_len.append(min(r_cap, ln - k))
+        for offs, base in ranges:
+            start = int(offs[t])
+            ln = int(offs[t + 1]) - start
+            for k in range(0, ln, r_cap):
+                seg_col.append(col)
+                seg_start.append(base + start + k)
+                seg_len.append(min(r_cap, ln - k))
     u_cols = _pad_pow2(np.asarray(seg_col, np.int32), -1)
     u_starts = np.zeros(len(u_cols), dtype=np.int32)
     u_lens = np.zeros(len(u_cols), dtype=np.int32)
@@ -277,6 +302,147 @@ def split_query_arrays(
         "u_cols": u_cols,
         "t_tids": t_tids,
     }
+
+
+def head_tf_columns(
+    lut: np.ndarray,
+    c_pad: int,
+    term_ids: np.ndarray,   # i32 [R, L] — the changed rows' new content
+    tfs: np.ndarray,        # u8  [R, L]
+) -> np.ndarray:
+    """tf_head columns [c_pad, R] for changed rows under a FROZEN head
+    lut — the O(delta) replacement for rebuilding the full [C, N] head
+    matrix when only a few rows changed."""
+    r, width = term_ids.shape
+    cols = np.zeros((c_pad, r), dtype=np.uint8)
+    ids = term_ids.ravel()
+    tfv = tfs.ravel()
+    ok = (ids >= 0) & (ids < len(lut)) & (tfv > 0)
+    slots = np.where(ok, lut[np.maximum(ids, 0)], -1)
+    sel = slots >= 0
+    row_of = np.repeat(np.arange(r), width)
+    cols[slots[sel], row_of[sel]] = tfv[sel]
+    return cols
+
+
+def plan_tail_delta(
+    lut: np.ndarray,               # FROZEN head lut (may lag the vocab)
+    offsets: np.ndarray,           # base per-term ranges [V_base+1]
+    post_rows_host: np.ndarray,    # base postings rows (host copy)
+    overlay: Dict[int, Dict[int, int]],  # tid -> {row: tf}; MUTATED
+    changes: Sequence[Tuple[int, Any, Tuple[np.ndarray, np.ndarray]]],
+    reserve: int,
+    n_vocab: int,
+) -> Optional[Dict[str, np.ndarray]]:
+    """O(delta) tail-posting maintenance plan for changed rows.
+
+    ``changes`` is [(row, old, (new_ids, new_tfs))] where ``row`` is in
+    the SAME row space as ``post_rows_host`` (shard-local for a sharded
+    caller) and ``old`` is the pre-mutation (tids, tfs) or None for a
+    fresh slot.
+
+    For each row: every OLD tail entry is neutralized — removed from the
+    overlay if it lives there, else its base posting position gets tf=0
+    (an Okapi zero-tf contributes exactly nothing, and subset df comes
+    from the row-major term matrix, not the postings) — and every NEW
+    tail entry goes into the overlay. Head terms are untouched here
+    (head_tf_columns covers them); the head/tail PARTITION stays frozen
+    between full rebuilds, which costs only performance drift, never
+    correctness.
+
+    Returns None when the plan is infeasible (overlay outgrew the
+    reserve) — the caller falls back to a full rebuild and clears the
+    overlay. Otherwise: ``zero_pos`` (base positions to tf=0),
+    ``ov_rows``/``ov_tfs`` (the full overlay region content, per-term
+    contiguous, row-sorted) and ``ov_offsets`` [n_vocab+1].
+
+    Within a term's base range, postings are ROW-SORTED (build order is
+    row-major and the term sort is stable) — neutralization is a binary
+    search, not a scan.
+    """
+    lut_len = len(lut)
+    v_base = len(offsets) - 1
+    zero_pos: List[int] = []
+    for row, old, (n_ids, n_tfs) in changes:
+        pairs = []
+        if old is not None:
+            o_ids, o_tfs = old
+            live = (o_ids >= 0) & (o_tfs > 0)
+            pairs = zip(o_ids[live].tolist(), o_tfs[live].tolist())
+        for tid, _tf in pairs:
+            if tid < lut_len and lut[tid] >= 0:
+                continue  # head term: column scatter covers it
+            ov_t = overlay.get(tid)
+            if ov_t is not None and row in ov_t:
+                del ov_t[row]
+                continue
+            if tid >= v_base:
+                return None  # tail term outside the base vocab snapshot
+            lo, hi = int(offsets[tid]), int(offsets[tid + 1])
+            pos = lo + int(
+                np.searchsorted(post_rows_host[lo:hi], row)
+            )
+            if pos >= hi or int(post_rows_host[pos]) != row:
+                return None  # base entry not found: state drifted
+            zero_pos.append(pos)
+        live = (n_ids >= 0) & (n_tfs > 0)
+        for tid, tf in zip(n_ids[live].tolist(), n_tfs[live].tolist()):
+            if tid < lut_len and lut[tid] >= 0:
+                continue
+            overlay.setdefault(int(tid), {})[int(row)] = int(tf)
+
+    total = sum(len(v) for v in overlay.values())
+    if total > reserve:
+        return None
+    ov_offsets = np.zeros(n_vocab + 1, dtype=np.int64)
+    ov_rows = np.zeros(total, dtype=np.int32)
+    ov_tfs = np.zeros(total, dtype=np.uint8)
+    counts = np.zeros(n_vocab, dtype=np.int64)
+    for tid, entries in overlay.items():
+        counts[tid] = len(entries)
+    np.cumsum(counts, out=ov_offsets[1:])
+    for tid, entries in overlay.items():
+        if not entries:
+            continue
+        pos = int(ov_offsets[tid])
+        for row in sorted(entries):
+            ov_rows[pos] = row
+            ov_tfs[pos] = entries[row]
+            pos += 1
+    return {
+        "zero_pos": np.asarray(sorted(zero_pos), dtype=np.int64),
+        "ov_rows": ov_rows,
+        "ov_tfs": ov_tfs,
+        "ov_offsets": ov_offsets,
+    }
+
+
+def overlay_diff_span(
+    new_rows: np.ndarray,
+    new_tfs: np.ndarray,
+    prev: Tuple[np.ndarray, np.ndarray],
+) -> Tuple[int, int]:
+    """[lo, hi) span where the overlay region's new serialization differs
+    from the previous one, comparing with zero padding out to the longer
+    length (a shrink must zero the stale tail). (0, 0) = nothing to
+    write."""
+    prev_rows, prev_tfs = prev
+    n_new, n_prev = len(new_rows), len(prev_rows)
+    n = max(n_new, n_prev)
+    if n == 0:
+        return 0, 0
+    a_r = np.zeros(n, np.int64)
+    a_r[:n_new] = new_rows
+    a_t = np.zeros(n, np.int64)
+    a_t[:n_new] = new_tfs
+    b_r = np.zeros(n, np.int64)
+    b_r[:n_prev] = prev_rows
+    b_t = np.zeros(n, np.int64)
+    b_t[:n_prev] = prev_tfs
+    diff = np.nonzero((a_r != b_r) | (a_t != b_t))[0]
+    if not len(diff):
+        return 0, 0
+    return int(diff[0]), int(diff[-1]) + 1
 
 
 # ---------------------------------------------------------------------------

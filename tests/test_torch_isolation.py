@@ -52,6 +52,25 @@ def test_port_imports_and_queries_without_jax():
                  [{"course": "x"}] * 50)
         out = s.hybrid_topk_batch(emb[:2], [["alpha"], []])
         assert (out.rows >= 0).all(), out.rows
+        # The product path: runtime, ingest, ask, persist, server.
+        import os, pathlib, tempfile
+        root = pathlib.Path(tempfile.mkdtemp())
+        os.environ.update(INDEX_DIR=str(root), DENSE_DIR=str(root / "d"),
+                          BM25_DIR=str(root / "b"),
+                          EMB_CACHE_DIR=str(root / "e"),
+                          EMBEDDING_BACKEND="hash", LLM_BACKEND="auto")
+        from classmate_rag_tpu_torch.metadata import normalize_cli_metadata
+        from classmate_rag_tpu_torch.pipeline import (
+            ask_question, get_runtime, ingest_file)
+        from classmate_rag_tpu_torch.serve import make_server
+        rt = get_runtime(reload=True, device="cpu")
+        doc = root / "a.txt"
+        doc.write_text("The derivative measures the rate of change.")
+        ingest_file(path=doc, doc_meta=normalize_cli_metadata(), runtime=rt)
+        res = ask_question(question="what does the derivative measure",
+                           filters=normalize_cli_metadata(), runtime=rt)
+        assert "[1]" in res.answer, res.answer
+        make_server("127.0.0.1", 0, runtime=rt).server_close()
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "classmate_rag_tpu"))
         assert not loaded, loaded
@@ -68,8 +87,12 @@ def test_default_device_without_cuda_raises():
         assert not torch.cuda.is_available()
         from classmate_rag_tpu_torch.index.store import IndexStore
         from classmate_rag_tpu_torch.device import resolve_device
+        from classmate_rag_tpu_torch.pipeline.runtime import get_runtime
+        from classmate_rag_tpu_torch.serve import make_server
         for call in (lambda: IndexStore(8), lambda: resolve_device(None),
-                     lambda: resolve_device("cuda")):
+                     lambda: resolve_device("cuda"),
+                     lambda: get_runtime(reload=True),
+                     lambda: make_server("127.0.0.1", 0)):
             try:
                 call()
             except RuntimeError as e:

@@ -187,3 +187,31 @@ def test_bm25_split_score_core_matches(fast, budget, thr):
     tol = 1e-4 if fast else 1e-5
     np.testing.assert_allclose(a, b, rtol=tol, atol=tol)
     assert np.count_nonzero(b) > 0
+
+
+def test_split_query_arrays_with_overlay():
+    """Overlay segments (plan_tail_delta's region) give the JAX package's
+    segment table: the same columns, starts and lengths."""
+    rng = np.random.default_rng(8)
+    lut = np.full(12, -1, np.int32)
+    lut[[1, 4]] = [0, 1]
+    counts = rng.integers(0, 1300, size=12)
+    counts[[1, 4]] = 0
+    offsets = np.zeros(13, np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    ov_counts = rng.integers(0, 600, size=12) * (rng.random(12) < 0.6)
+    ov_offsets = np.zeros(13, np.int64)
+    np.cumsum(ov_counts, out=ov_offsets[1:])
+    q_terms = rng.integers(-1, 12, size=(4, 6)).astype(np.int32)
+    q_counts = np.ones((4, 6), np.float32)
+    for ov in (None, ov_offsets):
+        qa = jlex.split_query_arrays(lut, offsets, q_terms, q_counts,
+                                     r_cap=512, ov_offsets=ov,
+                                     ov_start=int(offsets[-1]) + 7)
+        qb = tlex.split_query_arrays(lut, offsets, q_terms, q_counts,
+                                     r_cap=512, ov_offsets=ov,
+                                     ov_start=int(offsets[-1]) + 7)
+        assert set(qb) == {"h_slots", "h_tids", "u_starts", "u_lens",
+                           "u_cols", "t_tids"}
+        for key in qb:
+            assert np.array_equal(qa[key], qb[key]), key

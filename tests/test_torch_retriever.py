@@ -56,7 +56,7 @@ def pair(tmp_path_factory):
                 terms_per_chunk=32)
     ts = TStore(D, slab_rows=256, terms_per_chunk=32, device="cpu")
     jc = JCatalog.load_or_create(tmp_path_factory.mktemp("cat"))
-    tc = TCatalog()
+    tc = TCatalog.load_or_create(tmp_path_factory.mktemp("tcat"))
     for s in (js, ts):
         s.upsert(ids, vecs, tokens, metas)
     for i, cid in enumerate(ids):
@@ -171,7 +171,7 @@ def e5_pair(tmp_path_factory):
     js.upsert(ids, jvecs, tokens, metas)
     ts.upsert(ids, tvecs, tokens, metas)
     jc = JCatalog.load_or_create(tmp_path_factory.mktemp("e5cat"))
-    tc = TCatalog()
+    tc = TCatalog.load_or_create(tmp_path_factory.mktemp("tcat"))
     for i, cid in enumerate(ids):
         jc.upsert(JEntry(cid, texts[i], tokens[i], metas[i]))
         tc.upsert(TEntry(cid, texts[i], tokens[i], metas[i]))
