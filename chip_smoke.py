@@ -1,13 +1,16 @@
 """Chip smoke test of the PyTorch/CUDA port (classmate_rag_tpu_torch).
 
-Drives the port's two main paths on one CUDA card and holds every kernel
+Drives the port's main paths on one CUDA card and holds every kernel
 of them against its plain PyTorch version: the batched fused hybrid
-query at the E5-base width (d = 768) over a 200,000-chunk corpus, and
-the E5-base encoder (full width, 12 layers, random weights from the
-model name) that ingests passages and encodes the questions it answers.
+query at the E5-base width (d = 768) over a 200,000-chunk corpus, the
+E5-base encoder (full width, 12 layers, random weights from the model
+name) that ingests passages and encodes the questions it answers, the
+product path, and the answer generator (Llama-3.1-8B at full width; it
+runs no hand-written kernel).
 
     python3 chip_smoke.py            # on a machine with one NVIDIA GPU
     python3 chip_smoke.py --product-child DIR   # phase 8's child alone
+    python3 chip_smoke.py --decode-child        # phase 9's child alone
 
 Phases, one JSON line each; any failure exits non-zero with no result:
 
@@ -48,7 +51,26 @@ Phases, one JSON line each; any failure exits non-zero with no result:
               asks 16 more with no O(corpus) counter moving and rows equal
               to a store loaded anew on the CPU, and serves three rounds
               of 8 concurrent /asks, a /delete and /stats through
-              make_server.
+              make_server; then a second runtime on the same index
+              answers with the decoder (LLM_BACKEND=tpu, temperature 0,
+              64 new tokens): 8 asks and 8 concurrent /asks, every
+              answer non-empty, one runner built (a "decode" line,
+              part "product");
+9. decode     in a child (--decode-child): Llama-3.1-8B at full width
+              (32 layers, weights drawn on the card from a seed) decodes
+              8 prompts left-padded to 1,024 (real lengths 512-1,024),
+              128 new tokens greedy, in bf16 and in W8A8 (the weights
+              quantized on the card): prefill ms, tokens/s and share of
+              the bf16 peak, decode ms a step against its bandwidth
+              bound, peak memory, the device's idle share over 4 steps;
+              W8A8's products exact to the int8 formula in f32, its
+              logits teacher-forced against bf16 (printed); 2 layers at
+              full width on the card against the CPU (cosine >= 0.9999,
+              argmax flips only at near-ties); get_runner
+              with LLM_BACKEND=tpu (a chat_batch of 8 against 8 chats at
+              temperature 0) and a Q8_0 GGUF written by the port loaded
+              by DecodeRunner. One JSON line a part, each beside the
+              card's name and power limit.
 
 Then the kernels line ({"kernels": [...]}), the nvidia-smi line, and
 last {"ok": true, "device": {...}}. A kernel's ``ms`` (and the plain
@@ -67,6 +89,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -123,6 +146,15 @@ def check(cond: bool, msg: str) -> None:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def peaks_for(name: str):
@@ -1300,8 +1332,107 @@ def product_child(root: Path, profile_path) -> int:
         srv.shutdown()
         srv.server_close()
     report["final"] = counters(rt.store)
+    emit(product_decoder(question))
     print("PRODUCT_CHILD_JSON:" + json.dumps(report), flush=True)
     return 0
+
+
+def product_decoder(question) -> dict:
+    """Phase 9's product part: a second runtime on the same persisted
+    index answering with the decoder (LLM_BACKEND=tpu, the default small
+    config, temperature 0, RUNNER_NEW new tokens): 8 asks through
+    ask_question and one round of 8 concurrent /asks. Every answer is
+    non-empty and the runtime builds its runner once."""
+    import os
+    import threading
+    import urllib.request
+
+    from classmate_rag_tpu_torch.generation.runner import DecodeRunner
+    from classmate_rag_tpu_torch.metadata import DocumentMetadata
+    from classmate_rag_tpu_torch.pipeline import runtime as R
+    from classmate_rag_tpu_torch.pipeline.ask import ask_question
+    from classmate_rag_tpu_torch.serve import make_server
+    from classmate_rag_tpu_torch.utils.metrics import metrics
+
+    os.environ.update(LLM_BACKEND="tpu", LLM_TEMPERATURE="0",
+                      LLM_MAX_TOKENS=str(RUNNER_NEW))
+    built = []
+    real = R.get_runner
+
+    def counting(cfg, **kw):
+        built.append(1)
+        return real(cfg, **kw)
+
+    R.get_runner = counting
+    try:
+        rt = R.get_runtime(reload=True)
+        if rt.warmup_thread is not None:
+            rt.warmup_thread.join()
+        qs = [question() for _ in range(8)]
+        t0 = time.perf_counter()
+        first = ask_question(question=qs[0], filters=DocumentMetadata(),
+                             top_k=K, runtime=rt)
+        first_s = time.perf_counter() - t0      # the runner's build included
+        lat, answers = [], [first.answer]
+        for q in qs[1:]:
+            t0 = time.perf_counter()
+            res = ask_question(question=q, filters=DocumentMetadata(),
+                               top_k=K, runtime=rt)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            answers.append(res.answer)
+        check(all(answers), "decode product: an empty answer")
+        check(isinstance(rt.runner, DecodeRunner)
+              and rt.runner.device.type == "cuda",
+              f"decode product: runner {rt.runner!r}")
+        srv = make_server("127.0.0.1", 0, runtime=rt)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        replies = [None] * len(qs)
+
+        def worker(i):
+            req = urllib.request.Request(
+                base + "/ask", data=json.dumps(
+                    {"question": qs[i], "k": K}).encode(),
+                headers={"Content-Type": "application/json"},
+                method="POST")
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=300) as r:
+                replies[i] = (r.status, json.loads(r.read()),
+                              (time.perf_counter() - t0) * 1e3)
+
+        batches0 = metrics.snapshot().get("retrieve_batch_count", 0)
+        try:
+            workers = [threading.Thread(target=worker, args=(i,))
+                       for i in range(len(qs))]
+            for w in workers:
+                w.start()
+            for w in workers:
+                w.join(timeout=300)
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        batches = metrics.snapshot().get("retrieve_batch_count", 0) - batches0
+        for i, rep in enumerate(replies):
+            check(rep is not None and rep[0] == 200 and rep[1]["answer"],
+                  f"decode product: /ask {i} failed or empty: {rep}")
+        check(len(built) == 1, f"decode product: {len(built)} runners built")
+        return {
+            "phase": "decode", "part": "product", "card": smi_line(),
+            "runner": rt.runner.model_name, "max_new": rt.runner.max_new,
+            "max_seq": rt.runner.max_seq, "runners_built": len(built),
+            "first_ask_s": first_s, "ask_ms": lat,
+            "ask_p50_ms": float(np.percentile(lat, 50)),
+            "server_ask_ms": [r[2] for r in replies],
+            "server_batches": batches,
+            "server_ask_p50_ms": float(np.percentile(
+                [r[2] for r in replies], 50)),
+            "server_equal_to_ask": sum(
+                r[1]["answer"] == a for r, a in zip(replies, answers)),
+            "answer_chars": [len(a) for a in answers],
+        }
+    finally:
+        R.get_runner = real
 
 
 def counters(store) -> dict:
@@ -1309,6 +1440,516 @@ def counters(store) -> dict:
         "device_full_uploads", "split_full_builds",
         "split_snapshot_restores", "df_full_builds")}
 
+
+
+# ---------------------------------------------------------------------------
+# The decoder (phase 9): Llama-3.1-8B at full width, W8A8, card vs CPU,
+# the runner and a GGUF, in a child process
+# ---------------------------------------------------------------------------
+
+DEC_BATCH = 8
+DEC_PROMPT = 1024          # left-padded width; real lengths 512-1,024
+DEC_MAX_SEQ = 2048
+DEC_NEW = 128
+DEC_EOS = [128001, 128009]  # Llama-3's <|end_of_text|>, <|eot_id|>
+DEC_PROFILE_STEPS = 4
+# W8A8 at full width, checked product by product on the prompts' own
+# activations (layer 0's seven products and lm_head): the int8 path
+# must equal the f32 evaluation of the same int8 formula (f32 sums of
+# exact int products; only the order of the sums may differ). Its
+# distance to the bf16 product and the teacher-forced W8A8 logits
+# against bf16 (1 and 32 layers) are printed, not held to a bar: with
+# weights drawn at random the reference's own scheme (per-token int8
+# activations, per-channel int8 weights; equal to the port's bit for
+# bit on the CPU, tests/test_torch_decoder.py) misses the bars of the
+# JAX package's tiny-model test (logit row cosine >= 0.999, argmax
+# agreement >= 0.90, tests/test_quant_decoder.py) at every depth from
+# one layer on, and down_proj's 14,336-wide SwiGLU input alone costs
+# ~3 % (PERF.md §6). The CPU tests hold those bars at tiny_test.
+W8A8_EXACT_RTOL = 1e-5
+DEC_CPU_LAYERS = 2
+DEC_CPU_PROMPT = 64
+DEC_CPU_COS_MIN = 0.9999   # card vs CPU prefill logit rows
+# Card vs CPU argmax: the same bf16 roundings, sums in another order; a
+# row may flip only where the CPU's top two logits are closer than twice
+# the largest logit difference, and at most 5 % of the rows.
+DEC_CPU_ARGMAX_MIN = 0.95
+RUNNER_NEW = 64            # LLM_MAX_TOKENS of the runner and product parts
+# A batch of 8 and a batch of 1 run cuBLAS kernels chosen by row count,
+# so their sums differ in order: a greedy step may differ between them
+# only where the top two logits are within this.
+DEC_NEAR_TIE = 1e-2
+
+
+def draw_decoder_params(cfg, seed: int, dev) -> dict:
+    """A decoder tree drawn on ``dev`` from a seeded generator with the
+    distribution of ``init_params``: matmul weights N(0, 0.02) in the
+    compute dtype, tok_emb N(0, 0.02) in f32, gains 1, Qwen2 biases
+    N(0, 0.02)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    h, L, ff = cfg.hidden, cfg.layers, cfg.ffn
+    qh, kvh = cfg.heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+
+    def normal(*shape, dtype=cfg.compute_dtype):
+        return torch.empty(shape, dtype=dtype, device=dev).normal_(
+            0.0, 0.02, generator=g)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=torch.float32, device=dev)
+
+    layers = {"attn_norm": ones(L, h), "q_w": normal(L, h, qh),
+              "k_w": normal(L, h, kvh), "v_w": normal(L, h, kvh),
+              "o_w": normal(L, qh, h), "ffn_norm": ones(L, h),
+              "gate_w": normal(L, h, ff), "up_w": normal(L, h, ff),
+              "down_w": normal(L, ff, h)}
+    if cfg.qkv_bias:
+        for k, n in (("q_b", qh), ("k_b", kvh), ("v_b", kvh)):
+            layers[k] = normal(L, n, dtype=torch.float32)
+    if cfg.qk_norm:
+        layers["q_norm"] = ones(L, cfg.head_dim)
+        layers["k_norm"] = ones(L, cfg.head_dim)
+    return {"tok_emb": normal(cfg.vocab_size, h, dtype=torch.float32),
+            "final_norm": ones(h), "lm_head": normal(h, cfg.vocab_size),
+            "layers": layers}
+
+
+def decoder_prompts(rng, cfg, batch, width, lo, hi):
+    """Left-padded prompts: ids [B, width] (pad 0) and real lengths."""
+    lens = rng.integers(lo, hi + 1, size=batch)
+    ids = np.zeros((batch, width), np.int64)
+    for i, n in enumerate(lens):
+        ids[i, width - n:] = rng.integers(3, cfg.vocab_size, size=n)
+    return ids, lens
+
+
+def prefill_mask(lens, width, max_seq, dev):
+    """The generate loop's prefill positions and mask (make_generate_fn)."""
+    from classmate_rag_tpu_torch.utils.numerics import NEG_INF
+
+    pad = width - torch.as_tensor(lens, device=dev)
+    slot = torch.arange(width, device=dev)[None, :]
+    pos = slot - pad[:, None]
+    key = torch.arange(max_seq, device=dev)[None, None, :]
+    ok = (key >= pad[:, None, None]) & (key <= slot[:, :, None]) & (
+        pos[:, :, None] >= 0)
+    return pos.clamp_min(0), torch.where(ok, 0.0, NEG_INF), pad
+
+
+def timed_generate(D, gen, params, ids, lens, eos):
+    """Run ``gen`` once with a CUDA event recorded after every forward it
+    makes (the prefill, then one a step): prefill ms and each step's ms
+    on the device's clock (host gaps included), and the wall time."""
+    marks = []
+    real = D.forward
+
+    def marked(*a, **kw):
+        out = real(*a, **kw)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        return out
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    D.forward = marked
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        toks = gen(params, ids, lens, 0, 0.0, 0.95, eos)
+        end.record()
+        end.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        D.forward = real
+    steps = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    return toks.cpu(), {"prefill_ms": start.elapsed_time(marks[0]),
+                        "step_ms": steps, "wall_ms": wall_ms}
+
+
+def teacher_forced(D, cfg, params, ids, lens, max_seq, dev):
+    """Logits [rows, V] of the real prompt positions, prefilled as the
+    generate loop prefills them."""
+    width = ids.shape[1]
+    pos, mask, _pad = prefill_mask(lens, width, max_seq, dev)
+    cache = D.empty_cache(cfg, ids.shape[0], max_seq, device=dev)
+    logits, _ = D.forward(params, torch.as_tensor(ids, device=dev), pos,
+                          cache, 0, cfg, attn_mask=mask)
+    real = (torch.arange(width)[None, :]
+            >= (width - torch.as_tensor(lens))[:, None]).to(dev)
+    return logits[real]
+
+
+def first_layers(tree, n: int) -> dict:
+    """The tree of the first ``n`` layers (views, no copy)."""
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    out["layers"] = {k: type(v)(*(x[:n] for x in v))
+                     if isinstance(v, tuple) else v[:n]
+                     for k, v in tree["layers"].items()}
+    return out
+
+
+def w8a8_products(D, cfg, params, q8, ids, dev) -> dict:
+    """Layer 0's seven products and lm_head on the activations of one
+    prompt: the W8A8 ``_mm`` against the f32 evaluation of the same int8
+    formula (TF32 is off) and against the bf16 product."""
+    import torch.nn.functional as F
+
+    bf = cfg.compute_dtype
+    l0 = {k: v[0] for k, v in params["layers"].items()}
+    q0 = {k: D.QTensor(v.q[0], v.scale[0]) if isinstance(v, D.QTensor)
+          else v[0] for k, v in q8["layers"].items()}
+    x = D._embed(params["tok_emb"], torch.as_tensor(ids, device=dev))[0]
+    normed = D._rms_norm(x, l0["attn_norm"], cfg.norm_eps).to(bf)
+    ff = (F.silu(D._mm(normed, l0["gate_w"], bf))
+          * D._mm(normed, l0["up_w"], bf)).to(bf)
+    final = D._rms_norm(x, params["final_norm"], cfg.norm_eps).to(bf)
+    cases = [(k, normed, l0[k], q0[k]) for k in (
+        "q_w", "k_w", "v_w", "o_w", "gate_w", "up_w")]
+    cases += [("down_w", ff, l0["down_w"], q0["down_w"]),
+              ("lm_head", final, params["lm_head"], q8["lm_head"])]
+    out = {}
+    for name, inp, w, qw in cases:
+        got = D._mm(inp, qw, bf)
+        xf = inp.float()
+        sx = xf.abs().amax(-1, keepdim=True).clamp_min(1e-8) / 127.0
+        xq = torch.round(xf / sx).clamp(-127, 127)
+        plain = (xq @ qw.q.float()) * sx * qw.scale
+        dense = D._mm(inp, w, bf)
+        cos = (got * dense).sum(-1) / (got.norm(dim=-1) * dense.norm(dim=-1))
+        out[name] = {
+            "rows": int(inp.shape[0]), "k": int(inp.shape[1]),
+            "n": int(got.shape[1]),
+            "rel_diff_to_f32": float((got - plain).abs().max()
+                                     / plain.abs().max()),
+            "cos_min_to_bf16": float(cos.min()),
+            "rel_err_to_bf16": float((got - dense).norm()
+                                     / dense.norm())}
+    return out
+
+
+def rows_agree(a, b) -> dict:
+    a, b = a.float(), b.float()
+    cos = (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
+    return {"rows": int(a.shape[0]), "cos_min": float(cos.min()),
+            "cos_mean": float(cos.mean()),
+            "argmax_agree": float((a.argmax(-1) == b.argmax(-1))
+                                  .float().mean()),
+            "max_abs_diff": float((a - b).abs().max())}
+
+
+def decode_full_width(D, cfg, dev, card: str) -> None:
+    """Parts 1-3, each emitted as it ends: full-width bf16 and W8A8
+    decode of B prompts, the W8A8 logits against bf16, and the card
+    against the CPU at 2 layers."""
+    from classmate_rag_tpu_torch.utils.numerics import NEG_INF
+
+    peak_bw, peak_bf16 = peaks_for(torch.cuda.get_device_name(0))[1][:2]
+    rng = np.random.default_rng(9)
+    B, P, S, N = DEC_BATCH, DEC_PROMPT, DEC_MAX_SEQ, DEC_NEW
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = draw_decoder_params(cfg, 1, dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    ids, lens = decoder_prompts(rng, cfg, B, P, P // 2, P)
+    gen = D.make_generate_fn(cfg, S, N)
+    D.make_generate_fn(cfg, S, 2)(params, ids, lens, 0, 0.0, 0.95,
+                                  DEC_EOS)          # warm-up
+    toks, t = timed_generate(D, gen, params, ids, lens, DEC_EOS)
+    check(toks.shape == (B, N), f"decode: tokens {tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "decode: token ids out of range")
+    h, qh = cfg.hidden, cfg.heads * cfg.head_dim
+    kvh = cfg.kv_heads * cfg.head_dim
+    mm_params = cfg.layers * (h * qh + 2 * h * kvh + qh * h
+                              + 3 * h * cfg.ffn) + h * cfg.vocab_size
+    attn_flops = 4.0 * B * cfg.heads * P * S * cfg.head_dim
+    prefill_flops = 2.0 * B * P * mm_params + attn_flops
+    kv_bytes = 2 * cfg.layers * B * cfg.kv_heads * S * cfg.head_dim * 2
+
+    def step_bound_ms(tree) -> float:
+        # Every weight but the embedding table is read once a step (the
+        # step gathers B of its rows), and the whole cache: attention
+        # runs over all S slots.
+        emb_bytes = D.quantized_param_bytes({"tok_emb": tree["tok_emb"]})
+        return ((D.quantized_param_bytes(tree) - emb_bytes + kv_bytes)
+                / peak_bw * 1e3)
+
+    step_ms = statistics.median(t["step_ms"])
+    bound = step_bound_ms(params)
+    # The device's idle share over a few decode steps.
+    pos, mask, pad = prefill_mask(lens, P, S, dev)
+    cache = D.empty_cache(cfg, B, S, device=dev)
+    prefix = torch.as_tensor(ids, device=dev)
+    logits, _ = D.forward(params, prefix, pos, cache, 0, cfg, attn_mask=mask)
+    tok = logits[:, -1].argmax(-1)
+    del logits
+    key = torch.arange(S, device=dev)[None, None, :]
+
+    def steps():
+        for i in range(DEC_PROFILE_STEPS):
+            step_mask = torch.where((key >= pad[:, None, None])
+                                    & (key <= P + i), 0.0, NEG_INF)
+            D.forward(params, tok[:, None], (P + i - pad)[:, None], cache,
+                      P + i, cfg, attn_mask=step_mask)
+
+    steps()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    steps()
+    torch.cuda.synchronize()
+    steps_wall = (time.perf_counter() - t1) * 1e3
+    prof = profile_batch(steps, "/dev/null", steps_wall,
+                         phase="profile_decode")
+    del cache
+    emit({
+        "phase": "decode", "part": "bf16", "card": card,
+        "model": "llama3_8b", "layers": cfg.layers, "batch": B,
+        "prompt_width": P, "prompt_tokens": int(lens.sum()),
+        "max_seq": S, "max_new": N, "draw_s": draw_s,
+        "prefill_ms": t["prefill_ms"],
+        "prefill_tokens_per_s": B * P / (t["prefill_ms"] / 1e3),
+        "prefill_flops": prefill_flops,
+        "prefill_share_of_bf16_peak":
+            prefill_flops / (t["prefill_ms"] / 1e3) / peak_bf16,
+        "decode_step_ms_median": step_ms,
+        "decode_step_ms_p10_p90": [float(np.percentile(t["step_ms"], q))
+                                   for q in (10, 90)],
+        "decode_tokens_per_s": B / (step_ms / 1e3),
+        "generate_wall_ms": t["wall_ms"],
+        "step_bound_ms": bound, "step_bound_by": "bytes",
+        "step_share_of_bound": bound / step_ms,
+        "weight_bytes": D.quantized_param_bytes(params),
+        "kv_bytes": kv_bytes,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "profile_steps": DEC_PROFILE_STEPS, "steps_wall_ms": steps_wall,
+        "steps_device_busy_ms": prof["device_busy_ms"],
+        "steps_device_idle_share": prof["device_idle_share"],
+        "top_kernels": prof["top_kernels"][:6],
+        "tokens_row0": toks[0, :16].tolist()})
+
+    # ---- 2. W8A8: the same weights quantized on the card.
+    t0 = time.perf_counter()
+    q8 = D.quantize_decoder_params(params, cfg)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    D.make_generate_fn(cfg, S, 2)(q8, ids, lens, 0, 0.0, 0.95, DEC_EOS)
+    toks8, t8 = timed_generate(D, gen, q8, ids, lens, DEC_EOS)
+    check(toks8.shape == (B, N), "decode w8a8: tokens shape")
+    step8 = statistics.median(t8["step_ms"])
+    bound8 = step_bound_ms(q8)
+    with torch.inference_mode():
+        products = w8a8_products(D, cfg, params, q8, ids[:1], dev)
+        ref = teacher_forced(D, cfg, params, ids, lens, S, dev)
+        got = teacher_forced(D, cfg, q8, ids, lens, S, dev)
+        agree = rows_agree(got, ref)
+        del ref, got
+        one = dataclasses.replace(cfg, layers=1)
+        agree_1 = rows_agree(
+            teacher_forced(D, one, first_layers(q8, 1), ids, lens, S, dev),
+            teacher_forced(D, one, first_layers(params, 1), ids, lens, S,
+                           dev))
+    emit({
+        "phase": "decode", "part": "w8a8", "card": card, "batch": B,
+        "quantize_s": quant_s, "prefill_ms": t8["prefill_ms"],
+        "decode_step_ms_median": step8,
+        "decode_tokens_per_s": B / (step8 / 1e3),
+        "step_bound_ms": bound8, "step_bound_by": "bytes",
+        "step_share_of_bound": bound8 / step8,
+        "speedup_vs_bf16": step_ms / step8,
+        "weight_bytes": D.quantized_param_bytes(q8),
+        "products": products, "exact_rtol": W8A8_EXACT_RTOL,
+        "teacher_forced_vs_bf16": agree,
+        "teacher_forced_vs_bf16_1_layer": agree_1,
+        "tokens_equal_to_bf16": float((toks8 == toks).float().mean()),
+        "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    for name, row in products.items():
+        check(row["rel_diff_to_f32"] <= W8A8_EXACT_RTOL,
+              f"decode w8a8: {name} int8 path vs f32 {row}")
+    check(math.isfinite(agree["cos_min"]) and agree["cos_min"] > 0,
+          "decode w8a8: logits not finite")
+    del q8
+
+    # ---- 3. the card against the CPU, full width at 2 layers.
+    cfg2 = dataclasses.replace(cfg, layers=DEC_CPU_LAYERS)
+    p2 = first_layers(params, DEC_CPU_LAYERS)
+    del params
+    torch.cuda.empty_cache()
+    cpu = {k: v.cpu() for k, v in p2.items() if k != "layers"}
+    cpu["layers"] = {k: v.cpu() for k, v in p2["layers"].items()}
+    ids2, lens2 = decoder_prompts(rng, cfg, 2, DEC_CPU_PROMPT,
+                                  DEC_CPU_PROMPT, DEC_CPU_PROMPT)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        card_rows = teacher_forced(D, cfg2, p2, ids2, lens2,
+                                   DEC_CPU_PROMPT, dev).cpu()
+        cpu_rows = teacher_forced(D, cfg2, cpu, ids2, lens2,
+                                  DEC_CPU_PROMPT, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    agree = rows_agree(card_rows, cpu_rows)
+    top = cpu_rows.topk(2, dim=-1).values
+    near = (top[:, 0] - top[:, 1]) < 2 * agree["max_abs_diff"]
+    flips = card_rows.argmax(-1) != cpu_rows.argmax(-1)
+    agree["flips"] = int(flips.sum())
+    agree["flips_past_near_ties"] = int((flips & ~near).sum())
+    emit({"phase": "decode", "part": "card_vs_cpu", "card": card,
+          "layers": DEC_CPU_LAYERS, "prompts": 2,
+          "prompt_tokens": DEC_CPU_PROMPT, **agree,
+          "cos_bar": DEC_CPU_COS_MIN, "argmax_bar": DEC_CPU_ARGMAX_MIN,
+          "seconds": cpu_s})
+    check(agree["cos_min"] >= DEC_CPU_COS_MIN,
+          f"decode card vs CPU: cosine {agree['cos_min']}")
+    check(agree["argmax_agree"] >= DEC_CPU_ARGMAX_MIN
+          and agree["flips_past_near_ties"] == 0,
+          f"decode card vs CPU: argmax {agree}")
+
+
+def near_tie_margin(runner, prompt_ids, prefix) -> float:
+    """Top-1 minus top-2 logit after ``prompt_ids + prefix``, computed on
+    the runner's card as one sequence."""
+    from classmate_rag_tpu_torch.models import decoder as D
+    from classmate_rag_tpu_torch.utils.numerics import NEG_INF
+
+    seq = list(prompt_ids) + list(prefix)
+    n = len(seq)
+    dev = runner.device
+    pos = torch.arange(n, device=dev)[None]
+    mask = torch.where(torch.arange(n, device=dev)[None, None]
+                       <= pos[:, :, None], 0.0, NEG_INF)
+    with torch.inference_mode():
+        logits, _ = D.forward(runner.params, torch.tensor([seq], device=dev),
+                              pos, D.empty_cache(runner.config, 1, n,
+                                                 device=dev),
+                              0, runner.config, attn_mask=mask)
+    top = logits[0, -1].topk(2).values
+    return float(top[0] - top[1])
+
+
+def decode_runner(card: str) -> None:
+    """Part 4: get_runner with LLM_BACKEND=tpu on the card (the default
+    small config): a chat_batch of 8 against 8 chats at temperature 0;
+    and a small decoder written as a Q8_0 GGUF by the port, loaded by
+    DecodeRunner and answering."""
+    import os
+
+    from classmate_rag_tpu_torch.config import load_config
+    from classmate_rag_tpu_torch.generation.runner import (
+        DecodeRunner, get_runner,
+    )
+    from classmate_rag_tpu_torch.models import decoder as D
+    from classmate_rag_tpu_torch.models import gguf as G
+
+    os.environ.update(LLM_BACKEND="tpu", LLM_TEMPERATURE="0",
+                      LLM_MAX_TOKENS=str(RUNNER_NEW))
+    t0 = time.perf_counter()
+    runner = get_runner(load_config(reload=True))
+    build_s = time.perf_counter() - t0
+    check(isinstance(runner, DecodeRunner) and runner.device.type == "cuda",
+          f"decode runner: {runner!r}")
+    topics = ["derivatives", "eigenvalues", "pasta", "relativity",
+              "photosynthesis", "sorting", "the french revolution",
+              "integrals"]
+    convs = [[{"role": "system", "content": "Answer with citations."},
+              {"role": "user", "content": f"Explain {t} in two lines."}]
+             for t in topics]
+    prompts = [runner._encode_prompt(c) for c in convs]
+    t0 = time.perf_counter()
+    singles = [runner.chat(c, temperature=0.0, max_tokens=RUNNER_NEW)
+               for c in convs]
+    singles_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batched = runner.chat_batch(convs, temperature=0.0,
+                                max_tokens=RUNNER_NEW)
+    batch_s = time.perf_counter() - t0
+    ids_1 = [runner.generate_ids_batch([p])[0] for p in prompts]
+    ids_8 = runner.generate_ids_batch(prompts)
+    margins = []
+    for p, a, b in zip(prompts, ids_1, ids_8):
+        if a == b:
+            continue
+        k = next(i for i in range(max(len(a), len(b)))
+                 if a[i:i + 1] != b[i:i + 1])
+        margins.append(near_tie_margin(runner, p, b[:k]))
+    emit({"phase": "decode", "part": "runner", "card": card,
+          "model": runner.model_name, "max_seq": runner.max_seq,
+          "max_new": runner.max_new, "build_s": build_s,
+          "chat_s_each": singles_s / len(convs), "chat_batch_s": batch_s,
+          "strings_equal": sum(a == b for a, b in zip(singles, batched)),
+          "ids_equal": sum(a == b for a, b in zip(ids_1, ids_8)),
+          "near_tie_margins": margins, "near_tie_bar": DEC_NEAR_TIE})
+    check(all(m < DEC_NEAR_TIE for m in margins),
+          f"decode runner: batch of 8 and of 1 differ past a near-tie "
+          f"({margins})")
+    check(all(isinstance(x, str) for x in batched), "decode runner: output")
+    del runner
+    torch.cuda.empty_cache()
+
+    # ---- a GGUF written by the port.
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = D.DecoderConfig.small()
+        tokens = ["<unk>", "<s>", "</s>"] + [
+            f"<0x{b:02X}>" for b in range(256)]
+        tokens += [f"\u2581w{i}" for i in range(cfg.vocab_size - len(tokens))]
+        t0 = time.perf_counter()
+        path = Path(tmp) / "small.Q8_0.gguf"
+        G.export_decoder_to_gguf(
+            path, D.init_params(cfg, "chip-smoke-gguf"), cfg,
+            quant_type=G.GGML_Q8_0, extra_metadata={
+                "tokenizer.ggml.model": "llama",
+                "tokenizer.ggml.tokens": (G.T_ARRAY, (G.T_STRING, tokens)),
+                "tokenizer.ggml.scores": (
+                    G.T_ARRAY, (G.T_FLOAT32, [0.0] * len(tokens))),
+                "tokenizer.ggml.bos_token_id": 1,
+                "tokenizer.ggml.eos_token_id": 2})
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gr = DecodeRunner(model_dir=str(path), max_seq=512,
+                          max_new_tokens=32)
+        load_s = time.perf_counter() - t0
+        answer = gr.chat(convs[0], temperature=0.0)
+        check(gr.has_pretrained_weights and isinstance(
+            gr.tokenizer, G.GGUFTokenizer), "decode gguf: not loaded")
+        check(bool(answer), "decode gguf: empty answer")
+        emit({"phase": "decode", "part": "gguf", "card": card,
+              "model": gr.model_name, "file_bytes": path.stat().st_size,
+              "write_s": write_s, "load_s": load_s,
+              "answer_chars": len(answer), "eos_ids": gr.eos_ids})
+
+
+def decode_child() -> int:
+    """Phase 9 in its own process: one JSON line per part."""
+    from classmate_rag_tpu_torch.device import pin_fp32_matmul
+    from classmate_rag_tpu_torch.models import decoder as D
+
+    pin_fp32_matmul()        # f32 products in full f32 (the W8A8 check)
+    card = smi_line()
+    decode_full_width(D, D.DecoderConfig.llama3_8b(), torch.device("cuda"),
+                      card)
+    torch.cuda.empty_cache()
+    decode_runner(card)
+    return 0
+
+
+def decode_phase() -> list:
+    """Run the decode child and relay its lines."""
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--decode-child"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    for line in lines:
+        emit(line)
+    check(proc.returncode == 0,
+          f"decode child failed (rc={proc.returncode}):\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    check({ln.get("part") for ln in lines} >= {
+        "bf16", "w8a8", "card_vs_cpu", "runner", "gguf"},
+        "decode child: a part is missing")
+    emit({"phase": "decode", "part": "child",
+          "seconds": time.perf_counter() - t0})
+    return lines
 
 
 def main() -> int:
@@ -1325,6 +1966,8 @@ def main() -> int:
     ap.add_argument("--product-child", metavar="DIR",
                     help="run only the product phase's child against the "
                          "persisted index in DIR (bm25/, dense/)")
+    ap.add_argument("--decode-child", action="store_true",
+                    help="run only the decode phase's child")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1333,6 +1976,8 @@ def main() -> int:
         return 2
     if args.product_child:
         return product_child(Path(args.product_child), args.profile)
+    if args.decode_child:
+        return decode_child()
 
     from classmate_rag_tpu_torch.embeddings.hashing import HashingEmbedder
     from classmate_rag_tpu_torch.index.catalog import Catalog, CatalogEntry
@@ -1347,11 +1992,7 @@ def main() -> int:
     from classmate_rag_tpu_torch.retrieval.hybrid import HybridRetriever
 
     # ---- 1. device ---------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = smi_line()
     kind = torch.cuda.get_device_name(0)
     peak_key, peaks = peaks_for(kind)
     t0 = time.perf_counter()
@@ -1542,6 +2183,9 @@ def main() -> int:
 
     # ---- 8. product ------------------------------------------------------
     product_phase(docs, emb, counts, args.profile)
+
+    # ---- 9. decode -------------------------------------------------------
+    decode_phase()
 
     line = []
     for row, n in ((kern, launches["topk_scan"]),

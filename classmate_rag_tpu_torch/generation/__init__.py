@@ -1,5 +1,5 @@
 """Port of ``classmate_rag_tpu.generation``: prompting, citation
-post-processing and the runners (the decoder runner is not ported)."""
+post-processing and the runners (extractive, llama.cpp, the decoder)."""
 
 from classmate_rag_tpu_torch.generation.prompting import (
     build_general_messages,
@@ -8,12 +8,14 @@ from classmate_rag_tpu_torch.generation.prompting import (
 )
 from classmate_rag_tpu_torch.generation.post import enforce_citations
 from classmate_rag_tpu_torch.generation.runner import (
+    DecodeRunner,
     ExtractiveRunner,
     LlamaCppRunner,
     get_runner,
 )
 
 __all__ = [
+    "DecodeRunner",
     "ExtractiveRunner",
     "LlamaCppRunner",
     "build_general_messages",

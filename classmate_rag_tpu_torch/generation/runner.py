@@ -1,30 +1,38 @@
 """Generation runners (port of the JAX package's ``generation/runner.py``).
 
-Two backends behind the reference runner surface (no-arg constructible,
-``.chat(messages, **knobs) -> str``, legacy ``.generate(prompt) -> str``):
+Three interchangeable backends behind the reference runner surface
+(no-arg constructible, ``.chat(messages, **knobs) -> str``, legacy
+``.generate(prompt) -> str``):
 
 - ``LlamaCppRunner``: thin shim over llama-cpp-python when installed and a
   GGUF file exists (n_ctx=4096, seed=42, LLAMA_GPU_LAYERS honored).
+- ``DecodeRunner``: the port's decoder (models/decoder.py) with KV-cache
+  greedy/nucleus decode on the card — the JAX package's
+  ``TPUDecodeRunner``. It loads a GGUF file or an HF checkpoint
+  directory, or draws random weights from the model name.
 - ``ExtractiveRunner``: deterministic, dependency-free grounded answering —
   scores context-block sentences by lexical overlap with the question and
   composes a cited answer (a copy of the JAX package's, same answers).
 
-The JAX package's third backend, its own decoder (``TPUDecodeRunner``),
-is not ported yet (ROADMAP §1, decoder). ``get_runner`` follows the JAX
-package's selection (explicit backend, else llama_cpp → decoder →
-extractive) and raises ``NotImplementedError`` wherever that selection
-would build the decoder, instead of answering extractively in its place.
+``get_runner`` follows the JAX package's selection: explicit backend,
+else llama_cpp → decoder → extractive.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import re
+import struct
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence
 
+import numpy as np
+import torch
+
 from classmate_rag_tpu_torch.config import Config, load_config
+from classmate_rag_tpu_torch.device import DeviceLike, resolve_device
 from classmate_rag_tpu_torch.index.lexical import tokenize_py
 from classmate_rag_tpu_torch.utils.lang import detect_lang_tag
 
@@ -36,9 +44,15 @@ _FAILED_GGUF_RESOLVES: set = set()
 
 Messages = Sequence[Dict[str, str]]
 
-_DECODER_NOT_PORTED = (
-    "the decoder runner is not ported yet (ROADMAP §1, decoder): {}"
-)
+# What a GGUF that does not parse raises. ``auto`` falls through past
+# such a file, as the JAX package does; a missing card or a CUDA error
+# (RuntimeError) always propagates.
+_GGUF_PARSE_ERRORS = (ValueError, KeyError, IndexError, struct.error,
+                      OSError, EOFError)
+
+
+def _flag(name: str) -> bool:
+    return os.getenv(name, "").lower() in ("1", "true", "yes")
 
 
 def _last_user_content(messages: Messages) -> str:
@@ -191,10 +205,244 @@ class LlamaCppRunner:
         return out["choices"][0]["text"] or ""
 
 
+
+
+class DecodeRunner:
+    """The port's decoder (greedy/nucleus) behind a chat template, on
+    one device (None → CUDA)."""
+
+    def __init__(
+        self,
+        model_dir: Optional[str] = None,
+        config=None,
+        max_new_tokens: int = 256,
+        max_seq: int = 1024,
+        quantize: Optional[bool] = None,
+        device: DeviceLike = None,
+    ) -> None:
+        from classmate_rag_tpu_torch.embeddings.tokenizer import load_tokenizer
+        from classmate_rag_tpu_torch.models.decoder import (
+            DecoderConfig,
+            init_params,
+            load_params_from_hf,
+            make_generate_fn,
+            params_from_numpy,
+            quantize_decoder_params_host,
+        )
+
+        self.device = resolve_device(device)
+        if quantize is None:
+            quantize = _flag("TPU_DECODE_INT8")
+        if _flag("TPU_DECODE_TP") and torch.cuda.device_count() > 1:
+            raise NotImplementedError(
+                f"TPU_DECODE_TP asks for tensor-parallel decode over "
+                f"{torch.cuda.device_count()} cards; multi-card decode is "
+                "not ported yet (ROADMAP §1, multi-GPU)")
+
+        # Config comes from the checkpoint when one is given. eos ids are
+        # read whatever the config: checkpoints may declare several (e.g.
+        # Llama-3-Instruct's [end_of_text, eot_id]) — the LAST one ends
+        # chat turns, and all of them are stripped from output.
+        self.eos_ids = [2]
+        gguf_path: Optional[Path] = None
+        gguf_metadata = None
+        params = None
+        if model_dir and str(model_dir).endswith(".gguf") and Path(
+            model_dir
+        ).is_file():
+            # The reference's model files are GGUFs: params, config, eos
+            # ids and the embedded tokenizer all come from the one file.
+            from classmate_rag_tpu_torch.models.gguf import (
+                load_params_from_gguf, read_gguf_header,
+            )
+
+            gguf_path = Path(model_dir)
+            gguf_metadata = read_gguf_header(gguf_path)[0]
+            config, params = load_params_from_gguf(
+                gguf_path, config, host=True
+            )
+            eos_ids: List[int] = []
+            eos = gguf_metadata.get("tokenizer.ggml.eos_token_id")
+            if eos is not None:
+                eos_ids.append(int(eos))
+            # Sequence-end ids llama.cpp recognizes beyond the declared
+            # eos (llama_token_is_eog): GGUF conversions routinely record
+            # only <|end_of_text|> while chat turns end with <|eot_id|>.
+            # The document-level end goes first; chat-turn enders go
+            # LAST — self.eos_id (the last entry) is the id the decode
+            # loop stops on.
+            toks = gguf_metadata.get("tokenizer.ggml.tokens") or []
+            tok_pos = {t: i for i, t in enumerate(toks)}
+            doc_end = tok_pos.get("<|end_of_text|>")
+            if doc_end is not None and doc_end not in eos_ids:
+                eos_ids.insert(0, doc_end)
+            for name in ("<|eot_id|>", "<|im_end|>"):
+                tid = tok_pos.get(name)
+                if tid is not None:
+                    if tid in eos_ids:
+                        eos_ids.remove(tid)
+                    eos_ids.append(tid)
+            if eos_ids:
+                self.eos_ids = eos_ids
+            model_dir = None
+        if model_dir:
+            if config is None:
+                config = DecoderConfig.from_hf_config(model_dir)
+            try:
+                raw = json.loads(
+                    (Path(model_dir) / "config.json").read_text()
+                )
+                eos = raw.get("eos_token_id")
+                if isinstance(eos, int):
+                    self.eos_ids = [eos]
+                elif isinstance(eos, list):
+                    ints = [e for e in eos if isinstance(e, int)]
+                    if ints:  # keep the [2] default for non-int lists
+                        self.eos_ids = ints
+            except (OSError, ValueError):
+                pass
+        self.eos_id = self.eos_ids[-1]
+        self.config = config or DecoderConfig.small()
+        self.model_name = (
+            gguf_path.name if gguf_path else f"tpu-decoder-{self.config.hidden}"
+        )
+        if model_dir:
+            params = load_params_from_hf(model_dir, self.config)
+        self.has_pretrained_weights = params is not None
+        if params is None:
+            params = init_params(self.config, self.model_name)
+        # Every tree is numpy here: int8 quantizes on the host, so only
+        # int8 + scales cross to the card (bit-equal to the JAX package's
+        # on-device quantization).
+        self.quantized = bool(quantize)
+        if self.quantized:
+            params = quantize_decoder_params_host(params, self.config)
+        self.params = params_from_numpy(params, self.config, self.device)
+        del params
+        if gguf_metadata is not None and gguf_metadata.get(
+            "tokenizer.ggml.tokens"
+        ):
+            from classmate_rag_tpu_torch.models.gguf import GGUFTokenizer
+
+            self.tokenizer = GGUFTokenizer(gguf_metadata, max_length=max_seq)
+        else:
+            self.tokenizer = load_tokenizer(
+                model_dir, max_length=max_seq,
+                vocab_size=self.config.vocab_size,
+            )
+        # The KV cache and RoPE run to max_seq; don't exceed what the
+        # checkpoint was trained for.
+        max_seq = min(max_seq, self.config.max_seq)
+        max_new_tokens = min(max_new_tokens, max(max_seq - 64, 16))
+        self.max_new = max_new_tokens
+        self.max_seq = max_seq
+        self._generate = make_generate_fn(self.config, max_seq, max_new_tokens)
+
+    def _format_chat(self, messages: Messages) -> str:
+        parts = []
+        for m in messages:
+            parts.append(f"<|{m.get('role','user')}|>\n{m.get('content','')}")
+        parts.append("<|assistant|>\n")
+        return "\n".join(parts)
+
+    def generate_ids_batch(self, prompt_ids_list: Sequence[List[int]],
+                           seed: int = 42, temperature: float = 0.0,
+                           top_p: float = 0.95,
+                           max_tokens: Optional[int] = None) -> List[List[int]]:
+        """ONE batched decode for several prompts (left-padded to the
+        shared width; the batch pads to a power of two, as the JAX
+        package's does for its compile cache). Returns eos-stripped ids
+        per prompt, truncated at the FIRST eos (any declared id stops the
+        row) and clamped to ``max_tokens`` when given (the decode still
+        runs the static max_new horizon)."""
+        b = len(prompt_ids_list)
+        if b == 0:
+            return []
+        b_pad = 1 << (b - 1).bit_length() if b > 1 else 1
+        width = self.max_seq - self.max_new
+        arr = np.zeros((b_pad, width), dtype=np.int64)
+        lens = np.zeros(b_pad, dtype=np.int64)
+        for i, prompt_ids in enumerate(prompt_ids_list):
+            ids = prompt_ids[-width:]
+            arr[i, width - len(ids):] = ids
+            lens[i] = len(ids)
+        with torch.inference_mode():
+            toks = self._generate(
+                self.params, arr, lens, seed, temperature, top_p,
+                self.eos_ids,
+            )
+        out = toks.cpu().numpy()
+        cap = self.max_new if max_tokens is None else max(
+            min(int(max_tokens), self.max_new), 1
+        )
+        eos = set(self.eos_ids)
+        results: List[List[int]] = []
+        for i in range(b):
+            row: List[int] = []
+            for t in out[i].tolist()[:cap]:
+                if t in eos:
+                    break
+                row.append(t)
+            results.append(row)
+        return results
+
+    def generate_ids(self, prompt_ids: List[int], seed: int = 42,
+                     temperature: float = 0.0, top_p: float = 0.95):
+        return self.generate_ids_batch(
+            [prompt_ids], seed=seed, temperature=temperature, top_p=top_p
+        )[0]
+
+    def _encode_prompt(self, messages: Messages) -> List[int]:
+        prompt = self._format_chat(messages)
+        width = self.max_seq - self.max_new
+        # Decoder checkpoints bring their own tokenizer template; never
+        # apply the XLM-R <s>…</s> framing to them.
+        if hasattr(self.tokenizer, "encode_raw"):
+            return self.tokenizer.encode_raw(prompt, max_length=width)
+        return self.tokenizer.encode(prompt, max_length=width)
+
+    def chat(
+        self,
+        messages: Messages,
+        max_tokens: int = 768,
+        temperature: float = 0.2,
+        top_p: float = 0.95,
+        **_: Any,
+    ) -> str:
+        ids = self._encode_prompt(messages)
+        out_ids = self.generate_ids_batch(
+            [ids], temperature=temperature, top_p=top_p,
+            max_tokens=max_tokens,
+        )[0]
+        return self.tokenizer.decode(out_ids).strip()
+
+    def chat_batch(
+        self,
+        messages_list: Sequence[Messages],
+        max_tokens: int = 768,
+        temperature: float = 0.2,
+        top_p: float = 0.95,
+        **_: Any,
+    ) -> List[str]:
+        """ONE batched decode for a micro-batch of conversations: the
+        batch shares prefill and decode steps on the card."""
+        prompt_ids = [self._encode_prompt(m) for m in messages_list]
+        outs = self.generate_ids_batch(
+            prompt_ids, temperature=temperature, top_p=top_p,
+            max_tokens=max_tokens,
+        )
+        return [self.tokenizer.decode(ids).strip() for ids in outs]
+
+    def generate(self, prompt: str, **kwargs: Any) -> str:
+        return self.chat([{"role": "user", "content": prompt}], **kwargs)
+
+
 def get_runner(cfg: Optional[Config] = None,
-               model_path: Optional[str] = None):
+               model_path: Optional[str] = None,
+               device: DeviceLike = None):
     """Backend selection: explicit config, else llama_cpp → decoder →
-    extractive, as in the JAX package; the decoder raises."""
+    extractive, as in the JAX package. The decoder runs on ``device``
+    (None → CUDA)."""
     cfg = cfg or load_config()
     backend = cfg.llm_backend.lower()
     if backend == "extractive":
@@ -212,18 +460,23 @@ def get_runner(cfg: Optional[Config] = None,
                 "llama_cpp runner unavailable (%s: %s); falling through",
                 type(exc).__name__, exc,
             )
-    if backend == "tpu":
-        raise NotImplementedError(_DECODER_NOT_PORTED.format(
-            "LLM_BACKEND=tpu"))
-    if backend == "auto":
+    if backend in ("tpu", "auto"):
+        # The reference's context window: llama.cpp ran with n_ctx=4096
+        # and max_tokens=768; TPU_DECODE_MAX_SEQ bounds the KV cache.
+        kw = dict(
+            max_seq=int(os.getenv("TPU_DECODE_MAX_SEQ") or cfg.llm_n_ctx),
+            max_new_tokens=cfg.llm_max_tokens,
+            device=device,
+        )
         model_dir = os.getenv("TPU_DECODER_MODEL_DIR")
         if model_dir and Path(model_dir).exists():
-            raise NotImplementedError(_DECODER_NOT_PORTED.format(
-                f"TPU_DECODER_MODEL_DIR={model_dir} resolves"))
-        # The configured GGUF, resolved as the JAX package resolves it:
-        # there it would run on the decoder.
+            return DecodeRunner(model_dir=model_dir, **kw)
+        # The reference's configured model is a GGUF file
+        # (LLM_MODEL_PATH/LLM_REPO_ID/LLM_FILENAME): resolve it the same
+        # way and run it on the decoder.
         resolve_key = (cfg.llm_model_path, cfg.llm_repo_id, cfg.llm_filename)
         if resolve_key not in _FAILED_GGUF_RESOLVES:
+            gguf = None
             try:
                 from classmate_rag_tpu_torch.model_fetch import (
                     ensure_llama_model_available,
@@ -235,10 +488,18 @@ def get_runner(cfg: Optional[Config] = None,
                     filename=cfg.llm_filename or None,
                 )
             except Exception as exc:
+                # A missing file, or a hub download's network/HTTP error
+                # (this host may have no egress): degrade, and memo the
+                # failure so later asks do not pay a slow timeout again.
                 _FAILED_GGUF_RESOLVES.add(resolve_key)
                 logger.debug("GGUF resolve failed (%s); falling through", exc)
-            else:
-                if gguf.suffix == ".gguf":
-                    raise NotImplementedError(_DECODER_NOT_PORTED.format(
-                        f"the GGUF {gguf} resolves"))
+            if gguf is not None and gguf.suffix == ".gguf":
+                try:
+                    return DecodeRunner(model_dir=str(gguf), **kw)
+                except _GGUF_PARSE_ERRORS as exc:
+                    _FAILED_GGUF_RESOLVES.add(resolve_key)
+                    logger.debug("GGUF %s does not load (%s: %s); falling "
+                                 "through", gguf, type(exc).__name__, exc)
+        if backend == "tpu":
+            return DecodeRunner(**kw)
     return ExtractiveRunner()

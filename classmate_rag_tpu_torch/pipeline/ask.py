@@ -8,7 +8,8 @@ caps, target-language resolution (forced > configured > question
 detection), 3500-char context budget, routed or legacy generation with an
 "I don't know" general-answer fallback, optional translate-on-miss (legacy
 path), and optional strict-citation enforcement (skipped for fallback
-answers, which never saw the context).
+answers, which never saw the context). The legacy path generates with
+``Runtime.runner``, built once per runtime.
 """
 
 from __future__ import annotations
@@ -22,7 +23,6 @@ from classmate_rag_tpu_torch.generation import (
     enforce_citations,
     format_context_blocks,
 )
-from classmate_rag_tpu_torch.generation.runner import get_runner
 from classmate_rag_tpu_torch.metadata import DocumentMetadata
 from classmate_rag_tpu_torch.pipeline.runtime import Runtime, get_runtime
 from classmate_rag_tpu_torch.retrieval import expand_with_neighbors
@@ -151,7 +151,8 @@ def finish_ask_batch(
 ) -> List[AskResult]:
     """HOST tail of the batched ask: expansion, prompting, generation,
     citations. Questions that decide onto the same route generate in ONE
-    batched chat (a loop on the host-side runners). Safe to run outside the serving device lock."""
+    batched chat (one batched decode on the decoder runner; a loop on
+    host-side runners). Safe to run outside the serving device lock."""
     rt = runtime or get_runtime()
     where = filters.to_dict()
     results_list = [
@@ -255,8 +256,8 @@ def _finish_ask_many(
 ) -> List[AskResult]:
     """The ask tail for one or many questions. Same semantics per question
     as the reference's single-ask flow; generation groups questions by
-    decided route and answers each group through ONE chat_batch call
-    (a loop on the host-side runners)."""
+    decided route and answers each group through ONE chat_batch call of
+    the runtime's runner (one batched decode on the decoder)."""
     cfg = rt.cfg
     n = len(questions)
 
@@ -372,7 +373,7 @@ def _finish_ask_many(
         return out_results
 
     # ---- Legacy single-model path ------------------------------------
-    runner = get_runner(cfg)
+    runner = rt.runner
 
     def runner_chat_batch(msgs: List, **kw) -> List[str]:
         if hasattr(runner, "chat_batch"):

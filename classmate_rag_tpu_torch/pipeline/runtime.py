@@ -2,9 +2,10 @@
 of the JAX package's ``pipeline/runtime.py``).
 
 A single ``Runtime`` owns the loaded disk catalog, the device-resident
-IndexStore, the caching embedder and the retriever; repeated queries
-reuse the resident tensors. ``get_runtime(device=None)`` builds it on
-CUDA; the tests pass ``device="cpu"``.
+IndexStore, the caching embedder, the retriever and the generation
+runner; repeated queries reuse the resident tensors and the runner's
+weights. ``get_runtime(device=None)`` builds it on CUDA; the tests pass
+``device="cpu"``.
 
 Not ported yet, and raising instead of taking another route: routing
 (``ENABLE_ROUTING=1``; ROADMAP §1, routing) and the multi-card serving
@@ -29,6 +30,7 @@ from classmate_rag_tpu_torch.config import (
 )
 from classmate_rag_tpu_torch.device import DeviceLike, resolve_device
 from classmate_rag_tpu_torch.embeddings import get_caching_embedder
+from classmate_rag_tpu_torch.generation.runner import get_runner
 from classmate_rag_tpu_torch.index.catalog import Catalog
 from classmate_rag_tpu_torch.index.store import IndexStore
 from classmate_rag_tpu_torch.retrieval.hybrid import HybridRetriever
@@ -58,6 +60,20 @@ class Runtime:
     # Background warm-up thread at serving scale (join it to wait for
     # the resident state; queries are safe regardless).
     warmup_thread: Any = field(default=None, repr=False)
+    _runner: Any = field(default=None, repr=False)
+    _runner_lock: Any = field(default_factory=threading.Lock, repr=False)
+
+    @property
+    def runner(self):
+        """The generation runner, built from ``cfg`` on the runtime's
+        device at the first ask and reused by every later one. (The JAX
+        package calls ``get_runner`` on every ask, which for its decoder
+        draws or loads the weights again each time.)"""
+        with self._runner_lock:
+            if self._runner is None:
+                self._runner = get_runner(self.cfg,
+                                          device=self.store.device)
+            return self._runner
 
     @property
     def classifier(self):

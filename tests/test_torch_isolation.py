@@ -71,6 +71,31 @@ def test_port_imports_and_queries_without_jax():
                            filters=normalize_cli_metadata(), runtime=rt)
         assert "[1]" in res.answer, res.answer
         make_server("127.0.0.1", 0, runtime=rt).server_close()
+        # The decoder: a tiny GGUF written by the port, answered with
+        # LLM_BACKEND=tpu.
+        from classmate_rag_tpu_torch.generation import DecodeRunner
+        from classmate_rag_tpu_torch.models import decoder, gguf
+        cfg = decoder.DecoderConfig.tiny_test()
+        toks = ["<unk>", "<s>", "</s>"] + [f"t{i}" for i in range(509)]
+        gguf.export_decoder_to_gguf(
+            root / "tiny.gguf", decoder.init_params(cfg, "iso"), cfg,
+            quant_type=gguf.GGML_Q8_0, extra_metadata={
+                "tokenizer.ggml.model": "llama",
+                "tokenizer.ggml.tokens": (gguf.T_ARRAY,
+                                          (gguf.T_STRING, toks)),
+                "tokenizer.ggml.scores": (gguf.T_ARRAY,
+                                          (gguf.T_FLOAT32, [0.0] * 512)),
+                "tokenizer.ggml.bos_token_id": 1,
+                "tokenizer.ggml.eos_token_id": 2})
+        os.environ.update(LLM_BACKEND="tpu", LLM_TEMPERATURE="0",
+                          LLM_MODEL_PATH=str(root / "tiny.gguf"),
+                          LLM_MAX_TOKENS="4", TPU_DECODE_MAX_SEQ="64")
+        rt = get_runtime(reload=True, device="cpu")
+        res = ask_question(question="what does the derivative measure",
+                           filters=normalize_cli_metadata(), runtime=rt)
+        assert isinstance(rt.runner, DecodeRunner), rt.runner
+        assert rt.runner.model_name == "tiny.gguf"
+        assert isinstance(res.answer, str)
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "classmate_rag_tpu"))
         assert not loaded, loaded

@@ -7,8 +7,9 @@ documents of tests/test_pipeline.py), so chunk ids — hashed over the
 source path — must be EQUAL, and so must every answer, its citations and
 the retrieved ids, with and without filters and neighbour expansion.
 Scores agree within atol/rtol 1e-5. The port's runtime runs on the CPU
-(``device="cpu"``). Where the JAX package would take a path the port
-has not ported, the port raises NotImplementedError.
+(``device="cpu"``). The decoder backends answer through the port's
+DecodeRunner; where the JAX package would take a path the port has not
+ported, the port raises NotImplementedError.
 """
 
 import dataclasses
@@ -268,20 +269,38 @@ def _gguf(tmp_path):
     return str(p)
 
 
-NOT_PORTED = [
-    ("LLM_BACKEND=tpu", dict(LLM_BACKEND="tpu"), "ask"),
-    ("decoder dir", dict(LLM_BACKEND="auto",
-                         TPU_DECODER_MODEL_DIR="{tmp}"), "ask"),
-    ("gguf", dict(LLM_BACKEND="auto", LLM_MODEL_PATH="{gguf}"), "ask"),
-    ("routing", dict(ENABLE_ROUTING="1"), "runtime"),
+# Backend and runtime paths beyond the extractive one: (name, env, what
+# the port does). The decoder paths build the port's DecodeRunner where
+# the JAX package builds its TPUDecodeRunner (bounded by
+# TPU_DECODE_MAX_SEQ and LLM_MAX_TOKENS, which both runners honour); a
+# GGUF that does not parse falls through to the extractive runner, as
+# the JAX package's get_runner does; routing and encoder checkpoints are
+# not ported and raise.
+BOUNDED = dict(TPU_DECODE_MAX_SEQ="96", LLM_MAX_TOKENS="4",
+               LLM_TEMPERATURE="0")
+BACKEND_PATHS = [
+    ("LLM_BACKEND=tpu", dict(LLM_BACKEND="tpu", **BOUNDED), "decoder"),
+    ("decoder dir", dict(LLM_BACKEND="auto", TPU_DECODER_MODEL_DIR="{tmp}",
+                         **BOUNDED), "decoder"),
+    ("gguf", dict(LLM_BACKEND="auto", LLM_MODEL_PATH="{gguf}"),
+     "extractive"),
+    ("routing", dict(ENABLE_ROUTING="1"), "raise"),
     ("encoder checkpoint", dict(ENCODER_CHECKPOINT="{tmp}",
-                                EMBEDDING_BACKEND="e5"), "runtime"),
+                                EMBEDDING_BACKEND="e5"), "raise"),
 ]
 
 
-@pytest.mark.parametrize("name,env,where", NOT_PORTED,
-                         ids=[n for n, _e, _w in NOT_PORTED])
-def test_not_ported_paths_raise(monkeypatch, tmp_path, name, env, where):
+@pytest.mark.parametrize("name,env,expect", BACKEND_PATHS,
+                         ids=[n for n, _e, _x in BACKEND_PATHS])
+def test_backend_paths_answer_or_raise(monkeypatch, tmp_path, name, env,
+                                       expect):
+    from classmate_rag_tpu.config import load_config as jload
+    from classmate_rag_tpu.generation.runner import get_runner as j_runner
+    from classmate_rag_tpu_torch.generation.runner import (
+        DecodeRunner,
+        ExtractiveRunner,
+        _FAILED_GGUF_RESOLVES,
+    )
     from classmate_rag_tpu_torch.metadata import normalize_cli_metadata
     from classmate_rag_tpu_torch.pipeline.ask import ask_question
     from classmate_rag_tpu_torch.pipeline.runtime import get_runtime
@@ -291,7 +310,8 @@ def test_not_ported_paths_raise(monkeypatch, tmp_path, name, env, where):
     for k, v in env.items():
         monkeypatch.setenv(k, v.format(**subst))
     monkeypatch.delenv("LLAMA_CPP_LIB", raising=False)
-    if where == "runtime":
+    _FAILED_GGUF_RESOLVES.clear()
+    if expect == "raise":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_runtime(reload=True, device="cpu")
         return
@@ -299,9 +319,16 @@ def test_not_ported_paths_raise(monkeypatch, tmp_path, name, env, where):
     (tmp_path / "d.txt").write_text("The derivative measures change.")
     t_ingest.ingest_file(path=tmp_path / "d.txt",
                          doc_meta=normalize_cli_metadata(), runtime=rt)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ask_question(question="what does the derivative measure",
-                     filters=normalize_cli_metadata(), runtime=rt)
+    res = ask_question(question="what does the derivative measure",
+                       filters=normalize_cli_metadata(), runtime=rt)
+    assert res.answer
+    want = {"decoder": DecodeRunner, "extractive": ExtractiveRunner}[expect]
+    assert type(rt.runner) is want
+    # The JAX package builds the counterpart on the same configuration.
+    jtype = type(j_runner(jload(reload=True))).__name__
+    assert jtype == {"decoder": "TPUDecodeRunner",
+                     "extractive": "ExtractiveRunner"}[expect]
+    _FAILED_GGUF_RESOLVES.clear()
 
 
 def test_routed_ask_and_more_cards_raise(runtimes, monkeypatch):
