@@ -5,8 +5,9 @@ of them against its plain PyTorch version: the batched fused hybrid
 query at the E5-base width (d = 768) over a 200,000-chunk corpus, the
 E5-base encoder (full width, 12 layers, random weights from the model
 name) that ingests passages and encodes the questions it answers, the
-product path, and the answer generator (Llama-3.1-8B at full width; it
-runs no hand-written kernel).
+product path, the answer generator (Llama-3.1-8B at full width; it
+runs no hand-written kernel), and the encoder's fine-tuning with the
+flash attention backward kernels.
 
     python3 chip_smoke.py            # on a machine with one NVIDIA GPU
     python3 chip_smoke.py --product-child DIR   # phase 8's child alone
@@ -71,17 +72,40 @@ Phases, one JSON line each; any failure exits non-zero with no result:
               temperature 0) and a Q8_0 GGUF written by the port loaded
               by DecodeRunner. One JSON line a part, each beside the
               card's name and power limit.
+10. train     the backward kernels (flash_attn_bwd_dkv, flash_attn_bwd_dq)
+              against the plain version's autograd at (B 32, T 128),
+              (16, 256) and (8, 512), 12 heads, padded rows and a row
+              with no real key (cosine >= 0.9999, max |d| <= 2e-2 of the
+              largest plain value), the LSE-writing forward bit-equal to
+              the serving one, and their times (a 'kernels' line, part
+              'train'); one train step at full width and 2 layers on the
+              card against a CPU copy (loss rel. 1e-3, each gradient
+              leaf cosine >= 0.999); then E5-base fine-tuned at full
+              width and depth (flash_min_seq 128, B 32 pairs mined from
+              the slice corpus, T 128, warm-up 10, 30 steps): launch
+              counts around one step (24 flash_attn, 24 + 24 backward)
+              and over all 30, the loss falling and the in-batch accuracy
+              not, step ms, pairs/s, share of the bf16 peak, the f32
+              GEMM kernels' share of 4 traced steps (the backward
+              products), peak memory, the idle share over 4 steps; the
+              checkpoint served by get_embedder on the card
+              (256 query vectors, cosine >= 0.99999 to the trained
+              model's, tag ckpt-step_30-<digest>).
 
 Then the kernels line ({"kernels": [...]}), the nvidia-smi line, and
 last {"ok": true, "device": {...}}. A kernel's ``ms`` (and the plain
 and library times beside it) is CUDA-event time over 20 calls in a row
 after warm-up, divided by 20; ``ms_single`` is the median of 20 calls
-timed one by one, host launch overhead included; ``device_ms`` (and
-``library_device_ms``) the device time of the kernels one call
-launches, from torch.profiler over 20 calls: the card's busy time
-where the host cannot keep 20 short calls back to back. ``--profile PATH``
-also traces one warm batch (table in PATH) and one encoder forward
-(table in PATH_encoder).
+timed one by one, host launch overhead included; ``device_ms`` the
+device time of the kernels one call launches, from torch.profiler over
+20 calls: the card's busy time where the host cannot keep 20 short
+calls back to back. The trace must hold one kernel of the port per
+launch counted (a trace short of kernels is run again), two whole
+traces must agree within 5 %, and no device time may fall under 0.95
+of the bound. ``queued_ms`` (and ``library_device_ms``) is CUDA-event
+time over 20 calls the host queued while a spin kernel held the card.
+``--profile PATH`` also traces one warm batch (table in PATH) and one
+encoder forward (table in PATH_encoder).
 """
 
 from __future__ import annotations
@@ -111,6 +135,7 @@ N_ORACLE = 64
 RECALL_MIN = 0.99
 ROWS_AGREE_MIN = 0.999
 STEP_TOL = 1e-4        # GPU vs CPU fused-step scores (f32, other sum order)
+BOUND_FLOOR = 0.95     # a kernel's device time may not fall under this x bound
 KERNEL_TOL = 1e-5      # kernel vs plain scores (f32 sums of bf16 products)
 LN_TOL = 1e-5          # residual_ln kernel vs plain (f32, other sum order)
 ATTN_TOL = 1e-2        # flash_attn vs plain for |v| <= 1 (bf16 weights)
@@ -124,6 +149,7 @@ PRODUCT_TERMS = 256    # BM25_TERMS_PER_CHUNK of the product phase
 CHUNKS_PER_DOC = 10
 PRODUCT_ASKS = 32
 PRODUCT_CPU_ASKS = 8   # asks held against a store loaded anew on the CPU
+BACKWARD_KERNELS = ("flash_attn_bwd_dkv", "flash_attn_bwd_dq")  # training
 
 # Published dense peaks (NVIDIA data sheets): memory bytes/s, bf16
 # tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
@@ -418,7 +444,7 @@ def scan_row(ttopk, emb, q, bias, k, peaks, err):
     row = kernel_row(
         "topk_scan", "topk_scan.cu", "classmate_rag_tpu/ops/topk.py:170",
         {"N": n, "d": d, "Q": nq, "k": k}, err,
-        lambda: ttopk.masked_topk(emb, q, bias, k),
+        lambda: ttopk.masked_topk(emb, q, bias, k), ttopk.LAUNCHES,
         time_ms(lambda: ttopk.topk_reference(emb, q, bias, k), reps=5),
         lambda: torch.topk(torch.matmul(q16, emb.T).float() + bias, k),
         n * d * 2 + nq * d * 4 + n * 4 + nq * k * 8,
@@ -444,6 +470,7 @@ def merge_row(ttopk, emb, q, bias, k, peaks):
         "topk_merge", "topk_scan.cu", "classmate_rag_tpu/ops/topk.py:170",
         {"Q": nq, "lists": lists, "k": k}, err,
         lambda: ttopk.merge_slices(part_vals, part_rows, bounds, k),
+        ttopk.LAUNCHES,
         time_ms(lambda: ttopk.merge_partials(part_vals, part_rows, k)),
         # One call, the same top-k up to the order of equal scores.
         lambda: torch.topk(flat, k),
@@ -483,32 +510,119 @@ def kernel_phase(ttopk, store, q_dev, peaks):
     return serving, big_row, merge
 
 
-def device_ms(fn, reps: int = 20) -> float:
+# The port's kernels by the names the profiler gives them.
+PORT_KERNELS = ("topk_scan_kernel", "topk_merge_kernel", "bias_gelu_kernel",
+                "residual_ln_kernel", "flash_attn_kernel",
+                "flash_attn_bwd_dkv_kernel", "flash_attn_bwd_dq_kernel")
+TRACES = 4          # profiler sessions tried for one whole trace
+TRACE_AGREE = 0.05  # two whole traces' device times agree within this
+
+
+def cuda_events(events) -> list:
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e for e in events if e.device_type == cuda]
+
+
+def busy_us(events) -> float:
+    return sum(e.self_device_time_total for e in cuda_events(events))
+
+
+def traced(fn, launches, cpu: bool = False, tries: int = TRACES,
+           agree: bool = False):
+    """A torch.profiler trace of one run of ``fn`` that holds every
+    kernel of the port it launched: one per launch counted in
+    ``launches`` (a wrapper's LAUNCHES table) during the session. In a
+    long-lived process the profiler loses kernels in some sessions,
+    more the older the process, and now and then cuts a kernel's time
+    short (tools/torch_profiler_drops.py): a session short of kernels
+    is run again, up to ``tries`` in all, and with ``agree`` the trace
+    taken is the second of two whole ones whose device times agree
+    within TRACE_AGREE. The run fails if there is none. Returns the
+    trace's ``key_averages()`` and the number of sessions run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    last = None
+    for n in range(1, tries + 1):
+        before = sum(launches.values())
+        with profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        want = sum(launches.values()) - before
+        events = prof.key_averages()
+        seen = sum(e.count for e in cuda_events(events)
+                   if any(k in e.key for k in PORT_KERNELS))
+        if not (want > 0 and seen == want):
+            continue
+        if not agree:
+            return events, n
+        if last is not None and abs(busy_us(events) - last) <= (
+                TRACE_AGREE * last):
+            return events, n
+        last = busy_us(events)
+    raise SmokeFailure(f"{tries} traces, none whole{' twice' * agree}: the "
+                       f"last holds {seen} of the port's kernels, {want} "
+                       "launched")
+
+
+def device_ms(fn, launches, reps: int = 20):
     """The card's busy time for one call of ``fn``: the device time of
-    every kernel it launches over ``reps`` calls (torch.profiler), over
-    ``reps``. Unlike ``time_ms`` it leaves out the gaps where the card
-    waits for the host between short calls."""
+    every kernel it launches over ``reps`` calls, from a trace that
+    ``traced`` found whole twice (``launches`` is the wrapper's LAUNCHES
+    table), over ``reps``; and the number of traces it took. Unlike
+    ``time_ms`` it leaves out the gaps where the card waits for the
+    host between short calls."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == cuda) / reps / 1e3
+
+    events, n = traced(calls, launches, tries=2 * TRACES, agree=True)
+    return busy_us(events) / reps / 1e3, n
 
 
-def kernel_row(name, source, replaces, shape, err, fn, plain_ms, library,
-               bytes_moved, ops, bw, op_peak):
-    """One kernel's numbers: ``fn`` calls its wrapper, ``library`` the one
-    PyTorch call that computes the same function; the bound is the
-    larger of bytes over the memory rate and operations over the peak
-    rate of their type."""
+def queued_ms(fn, reps: int = 20):
+    """The card's time for one call of ``fn`` with the host out of its
+    way: a spin kernel holds the stream while the host queues ``reps``
+    calls between two CUDA events, so the card runs them back to back
+    (small gaps between kernels included); over ``reps``. For a library
+    call, whose kernels no count checks in a trace. None where the host
+    never gets ahead of the card (a call that waits for it)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    for spin in (4, 16, 64):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin * host_s * 2e9))   # cycles, ~1-2 GHz
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        held = not start.query()    # the card had not reached the calls
+        end.synchronize()
+        if held:
+            return start.elapsed_time(end) / reps
+    return None
+
+
+def kernel_row(name, source, replaces, shape, err, fn, launches, plain_ms,
+               library, bytes_moved, ops, bw, op_peak):
+    """One kernel's numbers: ``fn`` calls its wrapper, which counts its
+    launches in ``launches``; ``library`` the one PyTorch call that
+    computes the same function; the bound is the larger of bytes over
+    the memory rate and operations over the peak rate of their type. No
+    device time may fall under the bound."""
     t_bytes = bytes_moved / bw * 1e3
     t_ops = ops / op_peak * 1e3
-    return {
+    dev, traces = device_ms(fn, launches)
+    row = {
         "name": name,
         "route": "cuda",
         "source": f"classmate_rag_tpu_torch/ops/csrc/{source}",
@@ -517,15 +631,21 @@ def kernel_row(name, source, replaces, shape, err, fn, plain_ms, library,
         "max_abs_err": err,
         "ms": time_ms(fn),
         "ms_single": time_single_ms(fn),
-        "device_ms": device_ms(fn),
         "plain_ms": plain_ms,
         "library_ms": time_ms(library),
-        "library_device_ms": device_ms(library),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": bytes_moved,
         "flops": ops,
+        "device_ms": dev,
+        "device_traces": traces,
+        "queued_ms": queued_ms(fn),
+        "library_device_ms": queued_ms(library),
     }
+    check(row["device_ms"] >= BOUND_FLOOR * row["bound_ms"],
+          f"{name} {shape}: device time {row['device_ms']} ms under its "
+          f"bound {row['bound_ms']} ms")
+    return row
 
 
 def bf16_spacing(x: torch.Tensor) -> torch.Tensor:
@@ -559,7 +679,7 @@ def epilogue_kernels(tef, peaks):
     gelu = kernel_row(
         "bias_gelu", "bias_gelu.cu",
         "classmate_rag_tpu/ops/encoder_fused.py:104", {"N": n, "F": f}, err,
-        lambda: tef.bias_gelu(y, b),
+        lambda: tef.bias_gelu(y, b), tef.LAUNCHES,
         time_ms(lambda: tef.bias_gelu_reference(y, b)),
         lambda: F.gelu(y + b).to(torch.bfloat16),
         n * f * (4 + 2) + 4 * f,
@@ -581,7 +701,7 @@ def epilogue_kernels(tef, peaks):
     ln = kernel_row(
         "residual_ln", "residual_ln.cu",
         "classmate_rag_tpu/ops/encoder_fused.py:145", {"N": n, "H": h}, err,
-        lambda: tef.residual_ln(*args, eps=1e-5),
+        lambda: tef.residual_ln(*args, eps=1e-5), tef.LAUNCHES,
         time_ms(lambda: tef.residual_ln_reference(*args, eps=1e-5)),
         lambda: F.layer_norm(resid + y + b, (h,), gg, beta, 1e-5),
         3 * n * h * 4 + 3 * h * 4,
@@ -628,7 +748,7 @@ def flash_kernel(tatt, peaks):
             "classmate_rag_tpu/embeddings/model.py:272",
             {"B": b, "T": t, "heads": nh, "head_dim": hd,
              "real_keys": real}, err,
-            lambda: tatt.flash_attention(q, k, v, mask, 0.125),
+            lambda: tatt.flash_attention(q, k, v, mask, 0.125), tatt.LAUNCHES,
             time_ms(lambda: tatt.attention_reference(q, k, v, mask, 0.125)),
             lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                    attn_mask=keep),
@@ -687,6 +807,12 @@ def profile_batch(fn, path: str, wall_ms: float,
     with open(path, "w") as f:
         f.write(events.table(sort_by="self_device_time_total",
                              row_limit=60))
+    return profile_summary(events, wall_ms, phase)
+
+
+def profile_summary(events, wall_ms: float, phase: str) -> dict:
+    """Device busy time, idle share of ``wall_ms`` and the top ops and
+    kernels of a profiler's ``key_averages()``."""
     cuda = torch.autograd.DeviceType.CUDA
     busy_ms = sum(e.self_device_time_total for e in events
                   if e.device_type == cuda) / 1e3
@@ -812,7 +938,7 @@ def encoder_phase(rng, docs, counts, peaks, profile_path):
     n_layers = slice_cfg.layers      # 12: 12 / 24 / 12 a forward
     want = {"bias_gelu": n_layers * n_fwd, "residual_ln": 2 * n_layers * n_fwd,
             "flash_attn": n_layers * n_flash, "topk_scan": 0,
-            "topk_merge": 0}
+            "topk_merge": 0, **{k: 0 for k in BACKWARD_KERNELS}}
     check(launches == want, f"encoder launches {launches} != {want}")
     check(n_flash > 0 and n_flash < n_fwd, "expected flash and non-flash "
           f"buckets, got {sorted(set(t for _b, t in shapes))}")
@@ -947,7 +1073,10 @@ def ingest_ask_phase(enc, docs, rng, counts, knobs):
         t_first = time.perf_counter() - t0
         launches = counts.read()
         for name, n in launches.items():
-            check(n > 0, f"ingest+ask: {name} was not launched")
+            if name in BACKWARD_KERNELS:   # training only
+                check(n == 0, f"ingest+ask: {name} was launched")
+            else:
+                check(n > 0, f"ingest+ask: {name} was not launched")
         check(seen == ["cuda"], f"the query tensor reached the store as "
               f"{seen}, not on the card")
 
@@ -1952,6 +2081,372 @@ def decode_phase() -> list:
     return lines
 
 
+# ---------------------------------------------------------------------------
+# Training (phase 10): E5-base fine-tuned on the card, flash attention
+# forward and backward, then served from its checkpoint
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH = 32           # pairs a step
+TRAIN_SEQ = 128            # the smallest bucket the flash gate takes
+TRAIN_STEPS = 30
+TRAIN_WARMUP = 10
+TRAIN_LR = 1e-4
+TRAIN_BATCHES = 8          # a fixed set of batches, cycled
+TRAIN_PROFILE_STEPS = 4
+TRAIN_CPU_LAYERS = 2       # the card vs CPU step
+TRAIN_CPU_BATCH = 8
+BWD_COS_MIN = 0.9999       # backward kernels vs the plain autograd
+BWD_ERR_REL = 2e-2         # max |d| <= this * max |plain|
+TRAIN_LOSS_REL = 1e-3      # card vs CPU loss (bf16 sums in other orders)
+TRAIN_GRAD_COS = 0.999     # card vs CPU, each gradient leaf
+SERVE_COS_MIN = 0.99999    # the checkpoint's embedder vs the trained model
+FLASH_LIB = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+# cuBLAS's and CUTLASS's f32 GEMM kernels, by the names the profiler
+# gives them (sm80_xmma_gemm_f32f32_*, cutlass_80_simt_sgemm_*).
+F32_GEMM_KERNELS = ("gemm_f32f32", "sgemm")
+
+
+def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return float((a @ b) / (a.norm() * b.norm()).clamp_min(1e-300))
+
+
+def flash_bwd_kernels(tatt, peaks):
+    """flash_attn_bwd_dkv and flash_attn_bwd_dq against the plain
+    version's autograd at (B 32, T 128), (16, 256) and (8, 512), 12
+    heads, with padded rows, a row of one real key and a row of none;
+    the LSE-writing forward bit-equal to the serving forward. Times at
+    the training shape (B 32, T 128): ``library`` is the backward of
+    ``F.scaled_dot_product_attention`` with the same boolean key mask
+    (it computes dq, dk and dv in one call); ``plain`` the plain
+    version's backward."""
+    import torch.nn.functional as F
+
+    bw, bf16_peak, _f32 = peaks
+    nh, hd, scale = 12, 64, 0.125
+    h = nh * hd
+    rng = np.random.default_rng(13)
+    worst = {"dq": (1.0, 0.0), "dk": (1.0, 0.0), "dv": (1.0, 0.0)}
+    rows = {}
+    for b, t in ((32, 128), (16, 256), (8, 512)):
+        qkv = torch.from_numpy(rng.normal(0, 1.0, (b, t, 3, nh, hd))
+                               .astype(np.float32)).to(torch.bfloat16).cuda()
+        qkv.requires_grad_(True)
+        lengths = rng.integers(1, t + 1, b)
+        lengths[:3] = (0, 1, t)
+        mask = torch.from_numpy((np.arange(t)[None, :] < lengths[:, None])
+                                .astype(np.int32)).cuda()
+        dout = torch.from_numpy(rng.normal(0, 1.0, (b, t, h))
+                                .astype(np.float32)).to(torch.bfloat16).cuda()
+        q, k, v = qkv.unbind(2)
+        qd, kd, vd = (x.detach() for x in (q, k, v))
+        serving = tatt.flash_attn(qd, kd, vd, mask, scale)
+        out, lse = tatt.flash_attn(qd, kd, vd, mask, scale, with_lse=True)
+        torch.cuda.synchronize()
+        check(torch.equal(out, serving),
+              f"flash_attn B={b} T={t}: the LSE forward's output differs "
+              "from the serving forward's")
+        got = torch.autograd.grad(tatt.flash_attention(q, k, v, mask, scale),
+                                  qkv, dout)[0].float()
+        want = torch.autograd.grad(
+            tatt.attention_reference(q, k, v, mask, scale), qkv,
+            dout)[0].float()
+        torch.cuda.synchronize()
+        for i, name in enumerate(("dq", "dk", "dv")):
+            g, w = got[:, :, i], want[:, :, i]
+            check(bool(torch.isfinite(g).all()),
+                  f"flash_attn_bwd B={b} T={t}: non-finite {name}")
+            c, err = cosine(g, w), (g - w).abs().max().item()
+            check(c >= BWD_COS_MIN and err <= BWD_ERR_REL * w.abs().max()
+                  .item(), f"flash_attn_bwd B={b} T={t} {name}: cosine {c}, "
+                  f"max |d| {err} (max |plain| {w.abs().max().item()})")
+            worst[name] = (min(worst[name][0], c), max(worst[name][1], err))
+        if (b, t) != (32, 128):
+            continue
+        # Times at the training shape.
+        mask_i = mask.contiguous()
+        delta = (out.float() * dout.float()).view(b, t, nh, hd).sum(-1)
+        keys = int(np.where(lengths > 0, lengths, t).sum())  # what P covers
+        qr, kr, vr = (x.clone().requires_grad_(True) for x in (qd, kd, vd))
+        ref = tatt.attention_reference(qr, kr, vr, mask, scale)
+        plain_ms = time_ms(lambda: torch.autograd.grad(
+            ref, (qr, kr, vr), dout, retain_graph=True))
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                      for x in (qd, kd, vd))
+        lib = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask.bool()[:, None, None, :])
+        dout_t = dout.view(b, t, nh, hd).transpose(1, 2)
+
+        def library():
+            return torch.autograd.grad(lib, (qt, kt, vt), dout_t,
+                                       retain_graph=True)
+
+        shape = {"B": b, "T": t, "heads": nh, "head_dim": hd,
+                 "keys": keys}
+        qdo = 2 * b * t * h * 2            # q and dO read once
+        kv = 2 * keys * h * 2              # k and v where P covers them
+        rowv = 2 * b * t * nh * 4 + b * t * 4   # lse, delta, mask
+        err = max(e for _c, e in worst.values())
+        rows["dkv"] = kernel_row(
+            "flash_attn_bwd_dkv", "flash_attn_bwd.cu", f"{FLASH_LIB}:941",
+            shape, err,
+            lambda: tatt.flash_attn_bwd_dkv(qd, kd, vd, dout, mask_i, lse,
+                                            delta, scale), tatt.LAUNCHES,
+            plain_ms, library, qdo + kv + rowv + 2 * b * t * h * 2,
+            # S, dP, dV and dK over the keys P covers, every query row.
+            8.0 * nh * hd * t * keys, bw, bf16_peak)
+        rows["dq"] = kernel_row(
+            "flash_attn_bwd_dq", "flash_attn_bwd.cu", f"{FLASH_LIB}:1287",
+            shape, err,
+            lambda: tatt.flash_attn_bwd_dq(qd, kd, vd, dout, mask_i, lse,
+                                           delta, scale), tatt.LAUNCHES,
+            plain_ms, library, qdo + kv + rowv + b * t * h * 2,
+            6.0 * nh * hd * t * keys,   # S, dP and dQ
+            bw, bf16_peak)
+    for row in rows.values():
+        row["worst"] = {n: {"cosine": c, "max_abs_err": e}
+                        for n, (c, e) in worst.items()}
+    return rows["dkv"], rows["dq"]
+
+
+def train_batches(docs, tokenizer):
+    """TRAIN_BATCHES fixed batches of TRAIN_BATCH (query, passage) pairs
+    mined from the slice corpus (``mine_pairs``: each passage's top
+    tf-idf terms query it) and padded to TRAIN_SEQ (``encode_pairs``)."""
+    from classmate_rag_tpu_torch.index.catalog import Catalog, CatalogEntry
+    from classmate_rag_tpu_torch.training.data import encode_pairs, mine_pairs
+
+    n = TRAIN_BATCH * TRAIN_BATCHES
+    with tempfile.TemporaryDirectory() as d:
+        catalog = Catalog.load_or_create(d)
+        for i, words in enumerate(docs[:n]):
+            catalog.upsert(CatalogEntry(f"t{i}", " ".join(words), words, {}))
+        pairs = mine_pairs(catalog, max_pairs=n)
+    batches = list(encode_pairs(pairs, tokenizer, batch_size=TRAIN_BATCH,
+                                seq_len=TRAIN_SEQ))
+    check(len(batches) == TRAIN_BATCHES, f"{len(batches)} training batches")
+    return batches
+
+
+def train_card_vs_cpu(tree, cfg, batch) -> dict:
+    """One step's loss and gradients at full width and TRAIN_CPU_LAYERS
+    layers, on the card (flash kernels forward and backward) and on a
+    CPU copy (the plain versions). ``k_b``'s gradient is exactly 0 in
+    exact arithmetic (the softmax ignores a shift common to all keys),
+    so both sides hold rounding noise there: reported, not barred."""
+    from classmate_rag_tpu_torch.embeddings.model import params_from_numpy
+    from classmate_rag_tpu_torch.training import contrastive as T
+
+    cfg2 = dataclasses.replace(cfg, layers=TRAIN_CPU_LAYERS)
+    tree2 = {**tree, "layers": {k: v[:TRAIN_CPU_LAYERS]
+                                for k, v in tree["layers"].items()}}
+    names = [f"{n[0]}/{n[1]}[{i}]" if n[0] == "layers" else n[0]
+             for n in T.param_names()
+             for i in (range(TRAIN_CPU_LAYERS) if n[0] == "layers" else [0])]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = params_from_numpy(tree2, cfg2, dev, trainable=True)
+        arrays = [torch.as_tensor(a[:TRAIN_CPU_BATCH])
+                  .to(model.word_emb.device) for a in batch]
+        loss, _ = T.info_nce(model, 0.05, *arrays)
+        grads = torch.autograd.grad(loss, T.param_leaves(model))
+        out[dev] = (loss.item(), [g.float().cpu() for g in grads])
+        del model, grads
+    (l_card, g_card), (l_cpu, g_cpu) = out["cuda"], out["cpu"]
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    check(rel <= TRAIN_LOSS_REL, f"train card vs CPU: loss {l_card} vs "
+          f"{l_cpu}")
+    cos = {n: cosine(a, b) for n, a, b in zip(names, g_card, g_cpu,
+                                              strict=True)}
+    barred = {n: c for n, c in cos.items() if "/k_b[" not in n}
+    worst = min(barred, key=barred.get)
+    check(barred[worst] >= TRAIN_GRAD_COS,
+          f"train card vs CPU: gradient {worst} cosine {barred[worst]}")
+    return {"layers": TRAIN_CPU_LAYERS, "batch": TRAIN_CPU_BATCH,
+            "loss_card": l_card, "loss_cpu": l_cpu, "loss_rel": rel,
+            "grad_cos_min": barred[worst], "grad_cos_min_leaf": worst,
+            "k_b_cos": {n: c for n, c in cos.items() if "/k_b[" in n}}
+
+
+def f32_gemm_ms(events) -> float:
+    """Device time of the f32 GEMM kernels in a profiler's
+    ``key_averages()``: the f32 backward products of ``_MmF32`` (and
+    the [B, B] logits, a rounding error beside them)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.self_device_time_total for e in events
+               if e.device_type == cuda
+               and any(n in e.key for n in F32_GEMM_KERNELS)) / 1e3
+
+
+def train_phase(tatt, docs, counts, peaks) -> dict:
+    """Phase 10: the training path at E5-base's full width and depth."""
+    from classmate_rag_tpu_torch.config import EmbeddingConfig
+    from classmate_rag_tpu_torch.embeddings import get_embedder
+    from classmate_rag_tpu_torch.embeddings.model import (
+        EncoderConfig,
+        encoder_flops,
+        init_params,
+    )
+    from classmate_rag_tpu_torch.embeddings.tokenizer import (
+        bucket_length,
+        load_tokenizer,
+        pad_to_bucket,
+    )
+    from classmate_rag_tpu_torch.training import checkpoint as C
+    from classmate_rag_tpu_torch.training import contrastive as T
+
+    t_phase = time.perf_counter()
+    card = smi_line()
+    cfg = dataclasses.replace(EncoderConfig.base(), flash_min_seq=TRAIN_SEQ)
+    t0 = time.perf_counter()
+    tree = init_params(cfg, MODEL_NAME)
+    tok = load_tokenizer(None, max_length=TRAIN_SEQ,
+                         vocab_size=cfg.vocab_size)
+    batches = train_batches(docs, tok)
+    setup_s = time.perf_counter() - t0
+    card_vs_cpu = train_card_vs_cpu(tree, cfg, batches[0])
+
+    init, step = T.make_train_step(cfg, learning_rate=TRAIN_LR,
+                                   warmup_steps=TRAIN_WARMUP,
+                                   total_steps=TRAIN_STEPS)
+    evaluate = T.make_eval_step(cfg)
+    state = init(tree)
+
+    def eval_all():
+        res = [evaluate(state.params, *bt) for bt in batches]
+        return (float(np.mean([float(lo) for lo, _a in res])),
+                float(np.mean([float(a) for _l, a in res])))
+
+    eval0 = eval_all()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # The main path: every count 0 just before, read after one step and
+    # after all of them.
+    counts.reset()
+    state, loss = step(state, *batches[0])
+    torch.cuda.synchronize()
+    one = counts.read()
+    per_step = 2 * cfg.layers      # 2 encodes x 12 layers
+    want = {k: 0 for k in one}
+    want.update(flash_attn=per_step, flash_attn_bwd_dkv=per_step,
+                flash_attn_bwd_dq=per_step)
+    check(one == want, f"one train step launched {one}, want {want}")
+    losses = [float(loss)]
+
+    def steps():
+        nonlocal state
+        for _ in range(TRAIN_PROFILE_STEPS):
+            state, lo = step(state, *batches[state.step % TRAIN_BATCHES])
+            losses.append(float(lo))
+
+    # 4 steps timed on the host, then 4 (or, for a whole trace, up to
+    # 4 * TRACES) traced; the rest of the 30 timed one by one.
+    t0 = time.perf_counter()
+    steps()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    events, traces = traced(steps, tatt.LAUNCHES, cpu=True)
+    prof_line = profile_summary(events, wall_ms, "profile_train")
+    step_ms = []
+    while state.step < TRAIN_STEPS:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, loss = step(state, *batches[state.step % TRAIN_BATCHES])
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+    f32_ms = f32_gemm_ms(events) / TRAIN_PROFILE_STEPS
+    check(f32_ms > 0, "profile_train: no f32 GEMM kernel in the trace")
+    launches = counts.read()
+    check(state.step == TRAIN_STEPS, f"trained {state.step} steps")
+    for name in ("flash_attn", "flash_attn_bwd_dkv", "flash_attn_bwd_dq"):
+        check(launches[name] == per_step * TRAIN_STEPS,
+              f"{name}: {launches[name]} launches in {TRAIN_STEPS} steps")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    eval1 = eval_all()
+    check(all(math.isfinite(x) for x in losses), "train: non-finite loss")
+    check(eval1[0] < eval0[0], f"train: eval loss {eval0[0]} -> {eval1[0]}")
+    check(eval1[1] >= eval0[1], f"train: in-batch accuracy {eval0[1]} -> "
+          f"{eval1[1]}")
+
+    med = statistics.median(step_ms)
+    flops = 3 * 2 * encoder_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+
+    # Train -> serve: the checkpoint through get_embedder on the card.
+    rng = np.random.default_rng(21)
+    questions = [" ".join(rng.choice(docs[int(i)], size=5, replace=False))
+                 for i in rng.integers(0, len(docs), N_QUESTIONS)]
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        C.save_train_state(state, d, config=cfg)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        enc = get_embedder(EmbeddingConfig(embedding_backend="e5"),
+                           checkpoint=d)
+        load_s = time.perf_counter() - t0
+    digest = C._params_digest(state.params.params_numpy())
+    check(enc.model_name.endswith(f"@ckpt-step_{TRAIN_STEPS}-{digest}"),
+          f"served model name {enc.model_name}")
+    got = enc.encode_queries(questions)
+    rows = [enc.tokenizer.encode(f"query: {q}", enc.max_length)
+            for q in questions]
+    ids, mask = pad_to_bucket(rows, bucket_length(max(map(len, rows))))
+    with torch.no_grad():
+        want_v = state.params(torch.from_numpy(ids).cuda(),
+                              torch.from_numpy(mask).cuda()).cpu().numpy()
+    serve_cos = row_cos(got, want_v)
+    check(got.shape == (N_QUESTIONS, DIM) and bool(np.isfinite(got).all()),
+          "served vectors: bad output")
+    check(serve_cos >= SERVE_COS_MIN,
+          f"served vs trained query vectors: cosine {serve_cos}")
+    del enc, state
+    torch.cuda.empty_cache()
+    line = {
+        "phase": "train", "card": card, "model": MODEL_NAME,
+        "layers": cfg.layers, "hidden": cfg.hidden,
+        "vocab": cfg.vocab_size, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "steps": TRAIN_STEPS, "warmup": TRAIN_WARMUP, "lr": TRAIN_LR,
+        "launches_one_step": one, "launches": launches,
+        "train_loss_first_last": [losses[0], losses[-1]],
+        "eval_loss": [eval0[0], eval1[0]],
+        "eval_in_batch_acc": [eval0[1], eval1[1]],
+        "step_ms_median": med, "step_ms": step_ms,
+        "pairs_per_s": TRAIN_BATCH / (med / 1e3),
+        "step_flops": flops,
+        "bf16_peak_share": flops / (med / 1e3) / peaks[1],
+        "f32_gemm_ms_per_step": f32_ms,
+        "f32_gemm_share": f32_ms / (wall_ms / TRAIN_PROFILE_STEPS),
+        "peak_memory_gb": peak_gb,
+        "profile_steps": TRAIN_PROFILE_STEPS, "profile_traces": traces,
+        "profile_wall_ms": wall_ms,
+        "profile_busy_ms": prof_line["device_busy_ms"],
+        "device_idle_share": prof_line["device_idle_share"],
+        "card_vs_cpu": card_vs_cpu,
+        "serve": {"model_name": f"...@ckpt-step_{TRAIN_STEPS}-{digest}",
+                  "questions": N_QUESTIONS, "cos_min": serve_cos,
+                  "save_s": save_s, "load_s": load_s},
+        "setup_s": setup_s, "seconds": time.perf_counter() - t_phase,
+    }
+    emit(line)
+    emit(prof_line)
+    return line
+
+
+def train_kernels_and_phase(tatt, docs, counts, peaks):
+    """Phase 10: the backward kernels against the plain autograd (a
+    'kernels' line, part 'train'), then the training path; returns each
+    backward kernel's row with its launches in the training run."""
+    t0 = time.perf_counter()
+    dkv, dq = flash_bwd_kernels(tatt, peaks)
+    emit({"phase": "kernels", "part": "train", "card": smi_line(),
+          "kernels": [dkv, dq], "seconds": time.perf_counter() - t0})
+    launches = train_phase(tatt, docs, counts, peaks)["launches"]
+    return [(dkv, launches["flash_attn_bwd_dkv"]),
+            (dq, launches["flash_attn_bwd_dq"])]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -2187,12 +2682,16 @@ def main() -> int:
     # ---- 9. decode -------------------------------------------------------
     decode_phase()
 
+    # ---- 10. train -------------------------------------------------------
+    train_launches = train_kernels_and_phase(tatt, docs, counts, peaks)
+
     line = []
     for row, n in ((kern, launches["topk_scan"]),
                    (merge, launches["topk_merge"]),
                    (gelu, enc_launches["bias_gelu"]),
                    (ln, enc_launches["residual_ln"]),
-                   (flash, enc_launches["flash_attn"])):
+                   (flash, enc_launches["flash_attn"]),
+                   *train_launches):
         row = {**row, "launches": n}
         line.append({k: row[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -59,15 +59,37 @@ def get_embedder(
     checkpoint: Optional[str] = None,
     device: DeviceLike = None,
 ):
-    """Build the configured embedding backend (uncached)."""
+    """Build the configured embedding backend (uncached).
+
+    ``checkpoint`` (or cfg.encoder_checkpoint) loads fine-tuned params
+    from a training checkpoint of the port (``training.checkpoint``):
+    the embedder that answers queries is the one
+    ``python -m classmate_rag_tpu_torch.training.train_encoder`` made.
+    """
     cfg = cfg or load_embedding_config()
     name = model_name or cfg.embedding_model_name
     backend = cfg.embedding_backend.lower()
 
-    if (checkpoint or cfg.encoder_checkpoint) and backend != "hash":
-        raise NotImplementedError(
-            "loading a training checkpoint into the encoder is not ported "
-            "yet (ROADMAP, queue item 'Training')")
+    ckpt = checkpoint or cfg.encoder_checkpoint
+    if ckpt and backend != "hash":
+        from classmate_rag_tpu_torch.training.checkpoint import (
+            load_encoder_checkpoint,
+        )
+
+        params, enc_config, tag = load_encoder_checkpoint(ckpt)
+        snapshot = _find_local_snapshot(name, cfg.embedding_model_dir)
+        enc = E5Encoder(
+            model_name=f"{name.split('/')[-1]}@{tag}",
+            model_dir=snapshot,          # tokenizer source when present
+            config=enc_config,
+            params=params,
+            data_parallel=cfg.encode_data_parallel,
+            device=device,
+        )
+        # Fine-tuned weights are trained weights: the embedding cache
+        # must key them as such (and per tag), never as random init.
+        enc.has_pretrained_weights = True
+        return enc
 
     if backend == "hash":
         return HashingEmbedder(model_name=f"hash-{name.split('/')[-1]}")

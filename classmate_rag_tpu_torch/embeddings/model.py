@@ -8,9 +8,17 @@ package's ``embeddings/model.py``).
   converts a local HF snapshot into it; ``params_from_numpy`` builds the
   module from it.
 - Matmuls take bf16 operands and return f32 sums, as the reference's
-  ``einsum(..., preferred_element_type=f32)`` does; the weights are kept
-  in bf16 (the reference casts them at every use, to the same values).
-  Embeddings, LayerNorms, softmax and pooling run in f32.
+  ``einsum(..., preferred_element_type=f32)`` does; the serving form
+  keeps the weights in bf16 buffers (the reference casts them at every
+  use, to the same values). Embeddings, LayerNorms, softmax and pooling
+  run in f32.
+- The trainable form (``trainable=True``, for ``training/``) keeps the
+  JAX tree's f32 leaves as ``nn.Parameter``s, one per layer and key,
+  and casts each weight to ``compute_dtype`` at each use, as the JAX
+  train state does; both forms run the same layer loop. Gradients
+  follow JAX's rules: ``mm_f32``'s backward is the transpose of the
+  f32-sum product (f32 cotangent times the other bf16 operand, f32
+  sums, rounded to the operand's dtype).
 - ``lax.scan`` over the layers becomes a Python loop.
 
 Two gates pick the kernels, from the config alone:
@@ -29,6 +37,7 @@ masked mean pooling, L2 normalisation.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from hashlib import blake2b
 from pathlib import Path
@@ -219,26 +228,66 @@ def load_params_from_hf(model_dir: str, config: EncoderConfig) -> Optional[Param
 _MM_OUT_DTYPE = hasattr(torch.ops.aten.mm, "dtype")
 
 
+class _MmF32(torch.autograd.Function):
+    """``aten::mm.dtype`` (bf16 operands, f32 result), which has no
+    derivative in torch, with the transpose rule of JAX's
+    ``dot_general`` (jax/_src/lax/lax.py:5464-5489): the f32 cotangent
+    times the other operand in f32, rounded to the operand's dtype. On
+    the card those products run in f32 (TF32 off,
+    ``device.pin_fp32_matmul``)."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        return torch.mm(a, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        da = dw = None
+        if ctx.needs_input_grad[0]:
+            da = (g @ w.float().t()).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = (a.float().t() @ g).to(w.dtype)
+        return da, dw
+
+
 def mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """f32 [M, N] = a [M, K] · w [K, N] with f32 sums of the operands'
     products (the reference's ``preferred_element_type=f32``; a bf16
     ``matmul`` would round the result to bf16). On CUDA: cuBLAS's
-    bf16 → f32 product (``aten::mm.dtype``) where torch has it; else,
-    and on the CPU, the f32 product of the upcast operands (exact
-    products; TF32 is off, see ``device.pin_fp32_matmul``)."""
+    bf16 → f32 product (``aten::mm.dtype``) where torch has it, through
+    ``_MmF32`` when a gradient is wanted (without one, the call skips
+    the Function's dispatch: host time that the decode step, seven
+    products a layer, would pay); else, and on the CPU, the f32 product of the
+    upcast operands (exact products; TF32 is off, see
+    ``device.pin_fp32_matmul``), which torch autograd differentiates by
+    the same rule."""
     if (a.is_cuda and _MM_OUT_DTYPE
             and a.dtype in (torch.bfloat16, torch.float16)):
+        if torch.is_grad_enabled() and (a.requires_grad or w.requires_grad):
+            return _MmF32.apply(a, w)
         return torch.mm(a, w, out_dtype=torch.float32)
     return a.float() @ w.float()
 
 
+_TOP_KEYS = ("word_emb", "pos_emb", "type_emb", "emb_ln_g", "emb_ln_b")
+
+
 class E5Model(nn.Module):
-    """The encoder on one device: ``encode(ids, mask)`` → [B, H] f32."""
+    """The encoder on one device: ``encode(ids, mask)`` → [B, H] f32.
+
+    Serving form: bf16 weight buffers, q/k/v fused into one [H, 3H]
+    product a layer. Trainable form (``trainable=True``): the JAX tree's
+    f32 leaves as parameters (``q_w[i]`` is layer i's [H, H]), cast to
+    the compute dtype at each use; q, k and v are concatenated for the
+    same fused product."""
 
     def __init__(self, params: Params, config: EncoderConfig,
-                 device: torch.device) -> None:
+                 device: torch.device, trainable: bool = False) -> None:
         super().__init__()
         self.config = config
+        self.trainable = trainable
         cd = config.compute_dtype
         lay = params["layers"]
 
@@ -246,8 +295,14 @@ class E5Model(nn.Module):
             return torch.tensor(np.asarray(arr, np.float32),
                                 device=device).to(dtype)
 
-        for key in ("word_emb", "pos_emb", "type_emb", "emb_ln_g",
-                    "emb_ln_b"):
+        if trainable:
+            for key in _TOP_KEYS:
+                self.register_parameter(key, nn.Parameter(put(params[key])))
+            for key in _LAYER_KEYS:
+                setattr(self, key, nn.ParameterList(
+                    nn.Parameter(put(x)) for x in lay[key]))
+            return
+        for key in _TOP_KEYS:
             self.register_buffer(key, put(params[key]))
         # q, k and v as one [H, 3H] product a layer: the same sums of
         # the same products as three.
@@ -262,10 +317,16 @@ class E5Model(nn.Module):
             self.register_buffer(key, put(lay[key]))
 
     def params_numpy(self) -> Params:
-        """The tree back as numpy (weights as their bf16 values in f32)."""
+        """The tree back as numpy (the serving form's weights as their
+        bf16 values in f32)."""
         def get(t):
             return t.detach().float().cpu().numpy()
 
+        if self.trainable:
+            out = {key: get(getattr(self, key)) for key in _TOP_KEYS}
+            out["layers"] = {key: np.stack([get(x) for x in getattr(
+                self, key)]) for key in _LAYER_KEYS}
+            return out
         h = self.config.hidden
         qkv = get(self.qkv_w)
         qkv_b = get(self.qkv_b)
@@ -276,10 +337,21 @@ class E5Model(nn.Module):
         for key in _LAYER_KEYS:
             if key not in layers:
                 layers[key] = get(getattr(self, key))
-        out = {key: get(getattr(self, key)) for key in (
-            "word_emb", "pos_emb", "type_emb", "emb_ln_g", "emb_ln_b")}
+        out = {key: get(getattr(self, key)) for key in _TOP_KEYS}
         out["layers"] = layers
         return out
+
+    def _weights(self, i: int):
+        """Layer i's product weights in the compute dtype and the fused
+        QKV bias: (qkv_w, qkv_b, o_w, ff_in_w, ff_out_w)."""
+        cd = self.config.compute_dtype
+        if self.trainable:
+            qkv_w = torch.cat([self.q_w[i], self.k_w[i], self.v_w[i]], 1)
+            qkv_b = torch.cat([self.q_b[i], self.k_b[i], self.v_b[i]])
+        else:
+            qkv_w, qkv_b = self.qkv_w[i], self.qkv_b[i]
+        return (qkv_w.to(cd), qkv_b, self.o_w[i].to(cd),
+                self.ff_in_w[i].to(cd), self.ff_out_w[i].to(cd))
 
     def embed_tokens(self, ids: torch.Tensor,
                      mask: torch.Tensor) -> torch.Tensor:
@@ -303,26 +375,27 @@ class E5Model(nn.Module):
         nh = cfg.heads
         hd = h // nh
         sm_scale = 1.0 / math.sqrt(hd)
-        attend = (flash_attention
-                  if t >= cfg.flash_min_seq and t % 128 == 0
-                  else attention_reference)
+        attend = functools.partial(
+            flash_attention if t >= cfg.flash_min_seq and t % 128 == 0
+            else attention_reference, dtype=cd)
         fused = (cfg.fused_epilogue and fusable(b * t, h)
                  and fusable(b * t, cfg.intermediate))
         ln = residual_ln if fused else residual_ln_reference
-        gelu = bias_gelu if fused else bias_gelu_reference
+        gelu = (bias_gelu if fused
+                else functools.partial(bias_gelu_reference, out_dtype=cd))
 
         mask = mask.to(torch.int32)   # once, not in each layer's attention
         hidden = x.reshape(b * t, h)
         for i in range(cfg.layers):
-            qkv = mm_f32(hidden.to(cd), self.qkv_w[i]) + self.qkv_b[i]
+            qkv_w, qkv_b, o_w, ff_in_w, ff_out_w = self._weights(i)
+            qkv = mm_f32(hidden.to(cd), qkv_w) + qkv_b
             q, k, v = qkv.to(cd).view(b, t, 3, nh, hd).unbind(2)
             ctx = attend(q, k, v, mask, sm_scale).view(b * t, h)
-            hidden = ln(hidden, mm_f32(ctx.to(cd), self.o_w[i]),
+            hidden = ln(hidden, mm_f32(ctx.to(cd), o_w),
                         self.o_b[i], self.attn_ln_g[i], self.attn_ln_b[i],
                         cfg.ln_eps)
-            ff = gelu(mm_f32(hidden.to(cd), self.ff_in_w[i]),
-                      self.ff_in_b[i])
-            hidden = ln(hidden, mm_f32(ff.to(cd), self.ff_out_w[i]),
+            ff = gelu(mm_f32(hidden.to(cd), ff_in_w), self.ff_in_b[i])
+            hidden = ln(hidden, mm_f32(ff.to(cd), ff_out_w),
                         self.ff_out_b[i], self.ff_ln_g[i], self.ff_ln_b[i],
                         cfg.ln_eps)
 
@@ -340,13 +413,15 @@ class E5Model(nn.Module):
 
 
 def params_from_numpy(tree: Params, config: EncoderConfig,
-                      device: DeviceLike = None) -> E5Model:
+                      device: DeviceLike = None,
+                      trainable: bool = False) -> E5Model:
     """The port's encoder from the JAX package's parameter tree as numpy
-    (``{k: np.asarray(v)}``, layers stacked [L, ...])."""
+    (``{k: np.asarray(v)}``, layers stacked [L, ...]); ``trainable``
+    gives the f32-parameter form (see ``E5Model``)."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         pin_fp32_matmul()
-    model = E5Model(tree, config, dev)
+    model = E5Model(tree, config, dev, trainable=trainable)
     model.eval()
     return model
 

@@ -11,14 +11,28 @@ type, which the reference casts it to at once).
   probabilities times bf16 V with f32 sums. It serves every T on any
   device when the flash gate is off, the CPU always, and is the
   yardstick the kernel is held against on the card.
-- ``flash_attention``: the wrapper. CPU tensors take the plain version;
-  CUDA tensors launch ``csrc/flash_attn.cu`` (head_dim 64 only; TMA,
-  ``wgmma`` and a persistent grid of ``resident_ctas()`` blocks, each
-  walking (batch row, head, 128-query tile) items), or raise.
+- ``flash_attention``: the wrapper. CPU tensors take the plain version
+  (torch autograd differentiates it); CUDA tensors launch
+  ``csrc/flash_attn.cu`` (head_dim 64 only; TMA, ``wgmma`` and a
+  persistent grid of ``resident_ctas()`` blocks, each walking (batch
+  row, head, 128-query tile) items), or raise. When grad is enabled and
+  q, k or v requires it, the call goes through ``FlashAttention``: the
+  forward also writes each row's log-sum-exp, and the backward launches
+  ``csrc/flash_attn_bwd.cu``'s two kernels (dK/dV, then dQ), the
+  counterparts of the TPU library's ``_flash_attention_bwd_dkv`` and
+  ``_flash_attention_bwd_dq``. Serving (no grad) passes no LSE pointer.
 
 The TPU library kernel this replaces took the mask as segment ids,
 which also masks pad QUERY rows; the key-padding form leaves those rows
-as ordinary rows. Pooling drops them either way.
+as ordinary rows. Pooling drops them either way, so their output
+gradient is 0 in training: pad keys then get zero dK and dV, and dQ,
+dK and dV on real tokens equal the segment-id version's. A batch row
+with no real key attends uniformly to its T keys, forward and backward,
+as the plain version does.
+
+The plain version rounds to the encoder's compute dtype (bf16 by
+default; none when the encoder runs in f32, as the JAX ``_attend``
+does); the kernels take bf16 only.
 """
 
 from __future__ import annotations
@@ -31,7 +45,8 @@ from classmate_rag_tpu_torch.ops import _build
 from classmate_rag_tpu_torch.utils.numerics import NEG_INF
 
 # Launches of each kernel, counted where the wrapper launches it.
-LAUNCHES = {"flash_attn": 0}
+LAUNCHES = {"flash_attn": 0, "flash_attn_bwd_dkv": 0,
+            "flash_attn_bwd_dq": 0}
 
 HEAD_DIM = 64   # the only head_dim csrc/flash_attn.cu takes (both E5 sizes)
 
@@ -42,18 +57,19 @@ def attention_reference(
     v: torch.Tensor,
     mask: torch.Tensor,     # [B, T], nonzero = real token
     sm_scale: float,
+    dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
-    """Plain version → bf16 [B, T, heads·head_dim]."""
+    """Plain version → [B, T, heads·head_dim] in ``dtype``, the
+    encoder's compute dtype (bf16 unless it runs in f32)."""
     b, t, nh, hd = q.shape
-    qf, kf, vf = (x.to(torch.bfloat16).float() for x in (q, k, v))
+    qf, kf, vf = (x.to(dtype).float() for x in (q, k, v))
     # Products of bf16 values are exact in f32, so the f32 einsum is the
     # reference's bf16 einsum with f32 accumulation.
     scores = torch.einsum("bqnd,bknd->bnqk", qf, kf) * sm_scale
     bias = (1.0 - mask.float())[:, None, None, :] * NEG_INF
     probs = torch.softmax(scores + bias, dim=-1)
-    ctx = torch.einsum("bnqk,bknd->bqnd",
-                       probs.to(torch.bfloat16).float(), vf)
-    return ctx.reshape(b, t, nh * hd).to(torch.bfloat16)
+    ctx = torch.einsum("bnqk,bknd->bqnd", probs.to(dtype).float(), vf)
+    return ctx.reshape(b, t, nh * hd).to(dtype)
 
 
 def _check(q, k, v, mask):
@@ -72,8 +88,17 @@ def _launcher():
     fn = _build.load("flash_attn").flash_attn_launch
     if fn.argtypes is None:
         # Declared, or ctypes passes each pointer as a 32-bit int.
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
             ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_launcher(name: str, n_ptr: int):
+    fn = getattr(_build.load("flash_attn_bwd"), f"{name}_launch")
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3 + [
+            ctypes.c_longlong] * 3 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -84,9 +109,10 @@ def resident_ctas() -> int:
     return int(_build.load("flash_attn").flash_attn_resident_ctas())
 
 
-def flash_attn(q, k, v, mask, sm_scale):
-    """Launch the CUDA kernel (CUDA only)."""
-    b, t, nh, hd = q.shape
+def _check_qkv(q, k, v, sm_scale):
+    """The kernels' layout: bf16 [B, T, heads, 64] views sharing strides
+    (T·s, s, 64, 1) with s % 8 == 0, 16-byte aligned."""
+    hd = q.shape[3]
     if hd != HEAD_DIM:
         raise ValueError(f"flash_attn takes head_dim {HEAD_DIM}, got {hd}")
     if not sm_scale > 0:
@@ -99,23 +125,106 @@ def flash_attn(q, k, v, mask, sm_scale):
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     st = q.stride()
-    if st[3] != 1 or st[2] != hd or st[0] != t * st[1] or st[1] % 8:
+    if (st[3] != 1 or st[2] != hd or st[0] != q.shape[1] * st[1]
+            or st[1] % 8):
         raise ValueError(
             f"q, k, v need strides (T*s, s, {hd}, 1) with s % 8 == 0, got "
             f"{st}")
+
+
+def flash_attn(q, k, v, mask, sm_scale, with_lse: bool = False):
+    """Launch the CUDA kernel (CUDA only). With ``with_lse`` also
+    returns each row's base-2 log-sum-exp, f32 [B, heads, T], for the
+    backward."""
+    _check_qkv(q, k, v, sm_scale)
+    b, t, nh, hd = q.shape
     mask_i = mask.to(torch.int32).contiguous()
     out = torch.empty((b, t, nh * hd), dtype=torch.bfloat16, device=q.device)
+    lse = (torch.empty((b, nh, t), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if b * t > 0:
+        fn = _launcher()
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     mask_i.data_ptr(), out.data_ptr(),
+                     lse.data_ptr() if with_lse else None, b, t, nh,
+                     q.stride(1), sm_scale, stream)
+        if err != 0:
+            raise RuntimeError(f"flash_attn launch failed: cudaError {err}")
+        LAUNCHES["flash_attn"] += 1
+    return (out, lse) if with_lse else out
+
+
+def _bwd_launch(name, outs, q, k, v, dout, mask, lse, delta, sm_scale):
+    """Launch ``name`` of csrc/flash_attn_bwd.cu into ``outs`` (bf16
+    [B, T, heads, 64], contiguous)."""
+    _check_qkv(q, k, v, sm_scale)
+    b, t, nh, _hd = q.shape
     if b * t == 0:
-        return out
-    fn = _launcher()
+        return
+    fn = _bwd_launcher(name, 7 + len(outs))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_i.data_ptr(),
-                 out.data_ptr(), b, t, nh, st[1], sm_scale, stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                 mask.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 *(o.data_ptr() for o in outs), b, t, nh, q.stride(1),
+                 dout.stride(1), outs[0].stride(1), sm_scale, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attn launch failed: cudaError {err}")
-    LAUNCHES["flash_attn"] += 1
-    return out
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
+
+
+def flash_attn_bwd_dkv(q, k, v, dout, mask, lse, delta, sm_scale):
+    """dk, dv of ``flash_attn`` (the dK/dV kernel; CUDA only). ``dout``
+    bf16 [B, T, heads·64] contiguous, ``mask`` int32 [B, T], ``lse`` the
+    forward's, ``delta`` f32 [B, T, heads] = sum(out · dout)."""
+    dk, dv = (torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+              for _ in range(2))
+    _bwd_launch("flash_attn_bwd_dkv", (dk, dv), q, k, v, dout, mask, lse,
+                delta, sm_scale)
+    return dk, dv
+
+
+def flash_attn_bwd_dq(q, k, v, dout, mask, lse, delta, sm_scale):
+    """dq of ``flash_attn`` (the dQ kernel; CUDA only); arguments as
+    ``flash_attn_bwd_dkv``'s."""
+    dq = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+    _bwd_launch("flash_attn_bwd_dq", (dq,), q, k, v, dout, mask, lse, delta,
+                sm_scale)
+    return dq
+
+
+def flash_attn_bwd(q, k, v, out, dout, mask, lse, sm_scale):
+    """dq, dk, dv (bf16 [B, T, heads, 64]) of ``flash_attn`` from its
+    output ``out``, the output's gradient ``dout`` [B, T, heads·64] and
+    the forward's ``lse``: D = sum(out · dout) over head_dim as a torch
+    op, then the dK/dV kernel and the dQ kernel (CUDA only)."""
+    b, t, nh, hd = q.shape
+    mask = mask.to(torch.int32).contiguous()
+    dout = dout.to(torch.bfloat16).contiguous()
+    delta = (out.float() * dout.float()).view(b, t, nh, hd).sum(-1)
+    dk, dv = flash_attn_bwd_dkv(q, k, v, dout, mask, lse, delta, sm_scale)
+    dq = flash_attn_bwd_dq(q, k, v, dout, mask, lse, delta, sm_scale)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The flash kernel with its backward kernels (CUDA only)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, sm_scale):
+        out, lse = flash_attn(q, k, v, mask, sm_scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, mask, out, lse)
+        ctx.sm_scale = sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attn_bwd(q, k, v, out, dout, mask, lse,
+                                    ctx.sm_scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(
@@ -124,15 +233,21 @@ def flash_attention(
     v: torch.Tensor,
     mask: torch.Tensor,
     sm_scale: float,
+    dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
-    """bf16 [B, T, heads·head_dim] attention of q, k, v [B, T, heads,
-    head_dim] over the keys that ``mask`` [B, T] marks real.
+    """[B, T, heads·head_dim] attention of q, k, v [B, T, heads,
+    head_dim] over the keys that ``mask`` [B, T] marks real, in
+    ``dtype`` (the encoder's compute dtype).
 
-    On the CPU: the plain version. On CUDA: the hand-written kernel, or
-    an error — there is no fallback."""
+    On the CPU: the plain version, rounding to ``dtype``. On CUDA: the
+    hand-written kernel (and its backward kernels when a gradient is
+    wanted), bf16 only, or an error — there is no fallback."""
     _check(q, k, v, mask)
     if q.device.type == "cpu":
-        return attention_reference(q, k, v, mask, sm_scale)
+        return attention_reference(q, k, v, mask, sm_scale, dtype=dtype)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, mask, sm_scale)
     return flash_attn(q, k, v, mask, sm_scale)

@@ -164,6 +164,7 @@ __global__ void __launch_bounds__(THREADS, 2)
                       const __grid_constant__ CUtensorMap v_map,
                       const int* __restrict__ mask,      // [B, T]
                       __nv_bfloat16* __restrict__ out,   // [B, T, heads*64]
+                      float* __restrict__ lse,           // [B, heads, T] or null
                       int T, int heads, int n_qt, int n_items,
                       float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
@@ -388,6 +389,12 @@ __global__ void __launch_bounds__(THREADS, 2)
       sum += __shfl_xor_sync(FULL_MASK, sum, 2);
       const float inv = 1.0f / sum;
       const int r = g + 8 * i;
+      if (lse != nullptr && (lane & 3) == 0) {  // the backward's softmax
+        const int row = w.qt * BM + wg * 64 + wl * 16 + r;
+        if (row < T) {
+          lse[((size_t)w.b * heads + w.h) * T + row] = m[i] + log2f(sum);
+        }
+      }
 #pragma unroll
       for (int j = 0; j < 8; ++j) {  // 16-byte chunk j of row r, swizzled
         *reinterpret_cast<uint32_t*>(stage + r * 128 + ((j ^ (r & 7)) << 4) +
@@ -467,12 +474,15 @@ int flash_attn_resident_ctas() { return resident_ctas(); }
 
 // Launches on ``stream``. q, k, v: [B, T, heads, 64] bf16 with token
 // stride ``stride_t`` elements (a multiple of 8; 16-byte aligned bases);
-// out [B, T, heads*64] bf16; mask [B, T] int32; sm_scale > 0. Returns 0
+// out [B, T, heads*64] bf16; mask [B, T] int32; sm_scale > 0. ``lse``,
+// when not null, receives [B, heads, T] f32: each row's log-sum-exp in
+// base 2, m + log2(l) over the logits s * sm_scale * log2(e) + bias,
+// for the backward (flash_attn_bwd.cu); serving passes null. Returns 0
 // or the cudaError_t of the launch (a tensor-map failure as
 // cudaErrorUnknown).
 int flash_attn_launch(const void* q, const void* k, const void* v,
-                      const void* mask, void* out, int batch, int T,
-                      int heads, long long stride_t, float sm_scale,
+                      const void* mask, void* out, void* lse, int batch,
+                      int T, int heads, long long stride_t, float sm_scale,
                       void* stream) {
   if (batch <= 0 || T <= 0 || heads <= 0 || stride_t % 8 != 0 ||
       stride_t < (long long)heads * D || !(sm_scale > 0.0f)) {
@@ -494,7 +504,8 @@ int flash_attn_launch(const void* q, const void* k, const void* v,
   const int grid = (int)(n_items < ctas ? n_items : ctas);
   flash_attn_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       q_map, k_map, v_map, static_cast<const int*>(mask),
-      static_cast<__nv_bfloat16*>(out), T, heads, n_qt, (int)n_items,
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), T, heads,
+      n_qt, (int)n_items,
       sm_scale * LOG2E);
   return (int)cudaGetLastError();
 }

@@ -11,6 +11,11 @@ math, which is what the JAX package computes off the TPU) and a CUDA
 kernel (``csrc/bias_gelu.cu``, ``csrc/residual_ln.cu``). The wrappers take
 the plain version for CPU tensors and launch the kernel, or raise, for
 CUDA tensors.
+
+The kernels have no backward, as the JAX package's Pallas kernels have
+none (``jax.grad`` through them fails to linearize). A CUDA call that
+would need a gradient raises rather than hand back an output detached
+from the graph: training runs with ``fused_epilogue=False``.
 """
 
 from __future__ import annotations
@@ -43,11 +48,14 @@ def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     return (x - mean) * torch.rsqrt(var + eps) * g + b
 
 
-def bias_gelu_reference(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def bias_gelu_reference(y: torch.Tensor, b: torch.Tensor,
+                        out_dtype: torch.dtype = torch.bfloat16
+                        ) -> torch.Tensor:
     """Plain version: ``jax.nn.gelu(y + b, approximate=False)`` in f32
-    (0.5·x·erfc(−x/√2)), rounded to bf16."""
+    (0.5·x·erfc(−x/√2)), rounded to ``out_dtype`` (the encoder's compute
+    dtype; the kernel writes bf16)."""
     x = y + b
-    return (0.5 * x * torch.erfc(-x * _SQRT_HALF)).to(torch.bfloat16)
+    return (0.5 * x * torch.erfc(-x * _SQRT_HALF)).to(out_dtype)
 
 
 def residual_ln_reference(resid, y, b, g, beta, eps: float) -> torch.Tensor:
@@ -77,6 +85,14 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: inputs must be 16-byte aligned")
 
 
+def _no_grad_wanted(name: str, *tensors: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward (the JAX package's "
+            f"Pallas kernel has none either), so it cannot run where a "
+            f"gradient is wanted; train with fused_epilogue=False")
+
+
 def _same_device(name: str, *tensors: torch.Tensor) -> torch.device:
     dev = tensors[0].device
     if any(t.device != dev for t in tensors):
@@ -95,6 +111,7 @@ def bias_gelu(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"bias_gelu: y {tuple(y.shape)}, b {tuple(b.shape)}")
     if _same_device("bias_gelu", y, b).type == "cpu":
         return bias_gelu_reference(y, b)
+    _no_grad_wanted("bias_gelu", y, b)
     _check_cuda("bias_gelu", y, b)
     n, f = y.shape
     if f % 8:
@@ -130,6 +147,7 @@ def residual_ln(
                          f"{tuple(y.shape)}, {tuple(b.shape)}")
     if _same_device("residual_ln", resid, y, b, g, beta).type == "cpu":
         return residual_ln_reference(resid, y, b, g, beta, eps)
+    _no_grad_wanted("residual_ln", resid, y, b, g, beta)
     _check_cuda("residual_ln", resid, y, b, g, beta)
     n, h = resid.shape
     if h % 128 or h > _MAX_LN_WIDTH:

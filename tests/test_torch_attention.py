@@ -112,3 +112,50 @@ def test_flash_attention_rejects_bad_inputs():
                              torch.ones(2, 8), 0.25)
     with pytest.raises(ValueError):
         tatt.flash_attention(x, x, x, torch.ones(2, 7), 0.25)
+
+
+@pytest.mark.parametrize("t,lengths", [(16, [16, 5, 1]),
+                                       (128, [128, 64, 65, 1])])
+def test_attention_grads_match_jax_mha_reference(t, lengths):
+    """The plain version's autograd (what the CPU trains through, and
+    what the backward kernels are held against on the card) against the
+    JAX library's own reference gradients
+    (``flash_attention.mha_reference``, flash_attention.py:1530, with
+    segment ids), with the output gradient zero on pad query rows, as
+    the encoder's pooling gives it: dq on real rows, dk and dv on every
+    row (pad keys get none in either form). f32 throughout; tolerance
+    1e-4 relative to the largest gradient (f32 sums in other orders)."""
+    from jax.experimental.pallas.ops.tpu.flash_attention import (
+        SegmentIds, mha_reference,
+    )
+
+    nh, hd = 2, 64
+    q, k, v, mask = _inputs(len(lengths), t, nh, hd, lengths, seed=4)
+    rng = np.random.default_rng(5)
+    dout = rng.normal(0, 1, (len(lengths), t, nh * hd)).astype(np.float32)
+    dout *= mask[:, :, None]
+    scale = 1.0 / math.sqrt(hd)
+
+    def jax_attn(q, k, v):
+        # Its backward takes sm_scale 1 only: the scale goes on q.
+        out = mha_reference(*(x.transpose(0, 2, 1, 3)
+                              for x in (q * scale, k, v)),
+                            None, SegmentIds(q=mask, kv=mask))
+        return out.transpose(0, 2, 1, 3).reshape(len(lengths), t, nh * hd)
+
+    _, vjp = jax.vjp(jax_attn, *(jnp.asarray(x) for x in (q, k, v)))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = tatt.attention_reference(tq, tk, tv, torch.from_numpy(mask), scale,
+                                   dtype=torch.float32)
+    out.backward(torch.from_numpy(dout))
+    real = mask.astype(bool)
+    for name, got, w, rows in (("dq", tq.grad, want[0], real),
+                               ("dk", tk.grad, want[1], None),
+                               ("dv", tv.grad, want[2], None)):
+        got = got.numpy()
+        if rows is not None:
+            got, w = got[rows], w[rows]
+        err = np.abs(got - w).max()
+        assert err <= 1e-4 * np.abs(w).max(), (name, err)

@@ -213,10 +213,24 @@ def test_get_embedder_backend_choice(env, tmp_path, backend, with_weights):
     assert isinstance(cached, CachingEmbedder)
 
 
-def test_get_embedder_checkpoint_not_ported(env):
+def test_get_embedder_checkpoint_not_ported(env, tmp_path):
+    """``ENCODER_CHECKPOINT`` is ported since the training slice: a
+    directory without a checkpoint raises as the JAX package's does, a
+    port checkpoint is served, and the hash backend ignores both."""
     env.setenv("ENCODER_CHECKPOINT", "/some/ckpt")
-    with pytest.raises(NotImplementedError, match="Training"):
-        temb.get_embedder(load_embedding_config())
+    with pytest.raises(FileNotFoundError, match="step_N"):
+        temb.get_embedder(load_embedding_config(), device="cpu")
+    from classmate_rag_tpu_torch.embeddings.model import init_params
+    from classmate_rag_tpu_torch.training import make_train_step
+    from classmate_rag_tpu_torch.training.checkpoint import save_train_state
+
+    cfg = EncoderConfig.small_test()
+    init, _step = make_train_step(cfg, "cpu")
+    save_train_state(init(init_params(cfg, "ck")), tmp_path / "ck",
+                     config=cfg)
+    env.setenv("ENCODER_CHECKPOINT", str(tmp_path / "ck"))
+    enc = temb.get_embedder(load_embedding_config(), device="cpu")
+    assert isinstance(enc, E5Encoder) and "@ckpt-step_0-" in enc.model_name
     env.setenv("EMBEDDING_BACKEND", "hash")
     assert isinstance(temb.get_embedder(load_embedding_config()),
                       HashingEmbedder)

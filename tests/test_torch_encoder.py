@@ -151,6 +151,25 @@ def test_encode_matches_jax(tiny, t, flash_min_seq, fused):
     assert np.abs(got - want).max() <= ABS_MAX
 
 
+@pytest.mark.parametrize("flash_min_seq", [128, 1024])
+def test_encode_f32_matches_jax(tiny, flash_min_seq):
+    """With compute_dtype f32 both gates round nothing to bf16: at T =
+    128 the flash gate's CPU branch is the plain attention in f32, as
+    the JAX package's ``_attend`` off the TPU."""
+    jcfg, jp, tree = tiny
+    jcfg = dataclasses.replace(jcfg, compute_dtype=jnp.float32,
+                               flash_min_seq=flash_min_seq)
+    cfg = _tcfg(compute_dtype=torch.float32, flash_min_seq=flash_min_seq)
+    model = tm.params_from_numpy(tree, cfg, "cpu", trainable=True)
+    ids, mask = _batch(jcfg, 128)
+    want = np.asarray(jm.encode(jp, jnp.asarray(ids), jnp.asarray(mask),
+                                jcfg))
+    got = model.encode(torch.from_numpy(ids),
+                       torch.from_numpy(mask)).detach().numpy()
+    assert got.shape == want.shape and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
+
+
 def _save_weights(tensors, tmp_path, fmt):
     if fmt == "bin":
         torch.save(tensors, tmp_path / "pytorch_model.bin")

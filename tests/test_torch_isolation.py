@@ -1,6 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-a default-device call without CUDA raises instead of running on the CPU.
-Both checks run in a fresh interpreter."""
+"""The port stands alone: it imports neither JAX (nor optax or orbax) nor
+the JAX package, and a default-device call without CUDA raises instead
+of running on the CPU. Both checks run in a fresh interpreter."""
 
 import os
 import subprocess
@@ -16,7 +16,8 @@ _HOOK = textwrap.dedent("""
     class Refuse(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
             top = name.split(".")[0]
-            if top in ("jax", "jaxlib", "classmate_rag_tpu"):
+            if top in ("jax", "jaxlib", "optax", "orbax",
+                       "classmate_rag_tpu"):
                 raise ImportError(f"the port must not import {name}")
             return None
 
@@ -96,8 +97,25 @@ def test_port_imports_and_queries_without_jax():
         assert isinstance(rt.runner, DecodeRunner), rt.runner
         assert rt.runner.model_name == "tiny.gguf"
         assert isinstance(res.answer, str)
+        # Training: a step, a checkpoint, and the embedder serving it.
+        from classmate_rag_tpu_torch.embeddings import get_embedder
+        from classmate_rag_tpu_torch.embeddings.model import (
+            EncoderConfig, init_params)
+        from classmate_rag_tpu_torch.training import make_train_step
+        from classmate_rag_tpu_torch.training.checkpoint import (
+            save_train_state)
+        ecfg = EncoderConfig.small_test()
+        init, step = make_train_step(ecfg, "cpu", accum_steps=2)
+        state = init(init_params(ecfg, "iso"))
+        ids = np.ones((4, 16), np.int32)
+        state, loss = step(state, ids, ids, ids, ids)
+        save_train_state(state, root / "ck", config=ecfg)
+        os.environ.update(EMBEDDING_BACKEND="e5")
+        enc = get_embedder(checkpoint=str(root / "ck"), device="cpu")
+        assert enc.encode_queries(["a b"]).shape == (1, 64)
         loaded = sorted(m for m in sys.modules
-                        if m.split(".")[0] in ("jax", "classmate_rag_tpu"))
+                        if m.split(".")[0] in ("jax", "jaxlib", "optax",
+                                               "orbax", "classmate_rag_tpu"))
         assert not loaded, loaded
         print("modules", len(names))
     """)
@@ -114,7 +132,10 @@ def test_default_device_without_cuda_raises():
         from classmate_rag_tpu_torch.device import resolve_device
         from classmate_rag_tpu_torch.pipeline.runtime import get_runtime
         from classmate_rag_tpu_torch.serve import make_server
+        from classmate_rag_tpu_torch.embeddings.model import EncoderConfig
+        from classmate_rag_tpu_torch.training import make_train_step
         for call in (lambda: IndexStore(8), lambda: resolve_device(None),
+                     lambda: make_train_step(EncoderConfig.small_test()),
                      lambda: resolve_device("cuda"),
                      lambda: get_runtime(reload=True),
                      lambda: make_server("127.0.0.1", 0)):

@@ -18,6 +18,12 @@ Tolerances:
   ones: each weight differs by up to 2^-9 relative), and every row,
   pad-query rows included, finite.
 - the encoder on the card vs on the CPU: per-row cosine ≥ 0.9999.
+- flash_attn_bwd_dkv / flash_attn_bwd_dq: dq, dk and dv against the
+  plain version's autograd on the same bf16 inputs and output gradient,
+  cosine ≥ 0.9999 and max |Δ| ≤ 2e-2 · max |plain| (both round P, dS
+  and the gradients to bf16, at different points); the LSE the forward
+  writes for them within 1e-4 of torch's (base 2, f32), and the forward
+  output with it bit-equal to the serving forward's.
 """
 
 import numpy as np
@@ -318,6 +324,106 @@ def test_encoder_on_card_matches_cpu(cuda):
     with torch.no_grad():
         on_card = model.encode(ids.to(cuda), mask.to(cuda)).cpu()
     after = {**tef.LAUNCHES, **tatt.LAUNCHES}
+    # Inference launches no backward kernel.
     assert {k: after[k] - before[k] for k in after} == {
-        "bias_gelu": 2, "residual_ln": 4, "flash_attn": 2}
+        "bias_gelu": 2, "residual_ln": 4, "flash_attn": 2,
+        "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0}
     assert (on_card * on_cpu).sum(dim=1).min().item() >= 0.9999
+
+
+def _bwd_inputs(b, t, lengths, device, seed=0):
+    """bf16 q, k, v as the encoder's strided views of one leaf that
+    requires grad, an int32 key mask and a random output gradient."""
+    rng = np.random.default_rng(seed)
+    nh, hd = 12, 64
+    qkv = rng.normal(0, 1.0, (b, t, 3, nh, hd)).astype(np.float32)
+    qkv = torch.from_numpy(qkv).to(torch.bfloat16).to(device)
+    qkv.requires_grad_(True)
+    mask = torch.from_numpy(
+        (np.arange(t)[None, :] < np.asarray(lengths)[:, None])
+        .astype(np.int32)).to(device)
+    dout = torch.from_numpy(rng.normal(0, 1.0, (b, t, nh * hd))
+                            .astype(np.float32)).to(torch.bfloat16)
+    return qkv, mask, dout.to(device)
+
+
+def _attn_grads(fn, qkv, mask, dout):
+    qkv.grad = None
+    q, k, v = qkv.unbind(2)
+    out = fn(q, k, v, mask, 0.125)
+    out.backward(dout)
+    return out.detach(), qkv.grad.float()
+
+
+def _assert_grads_close(got, want):
+    for i, name in enumerate(("dq", "dk", "dv")):
+        g, w = got[:, :, i].flatten(), want[:, :, i].flatten()
+        assert bool(torch.isfinite(g).all()), name
+        cos = torch.nn.functional.cosine_similarity(g, w, dim=0).item()
+        err = (g - w).abs().max().item()
+        assert cos >= 0.9999, (name, cos)
+        assert err <= 2e-2 * w.abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t", [(32, 128), (16, 256), (8, 512),
+                                 (4, 200)])   # T cuts the 64-row tiles
+def test_flash_attn_bwd_matches_plain(cuda, b, t):
+    """Both backward kernels against the plain version's autograd, with
+    padded rows, a row of one real token and a row with no real key."""
+    rng = np.random.default_rng(b * t)
+    lengths = rng.integers(1, t + 1, b)
+    lengths[:3] = (0, 1, t)
+    qkv, mask, dout = _bwd_inputs(b, t, lengths, cuda)
+    before = dict(tatt.LAUNCHES)
+    _out, got = _attn_grads(tatt.flash_attention, qkv, mask, dout)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES["flash_attn_bwd_dkv"] == before[
+        "flash_attn_bwd_dkv"] + 1
+    assert tatt.LAUNCHES["flash_attn_bwd_dq"] == before[
+        "flash_attn_bwd_dq"] + 1
+    _out, want = _attn_grads(tatt.attention_reference, qkv, mask, dout)
+    _assert_grads_close(got, want)
+    # Pad keys of a row with real keys: no gradient.
+    for r in np.flatnonzero((lengths > 0) & (lengths < t)):
+        pad = mask[r] == 0
+        assert got[r, pad, 1:].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+def test_flash_attn_lse_and_serving_forward(cuda):
+    """The LSE the backward reads, and the forward's output unchanged by
+    writing it (the serving call passes no LSE pointer)."""
+    b, t, nh = 8, 256, 12
+    lengths = np.array([0, 1, 63, 64, 65, 200, 256, 129])
+    qkv, mask, _dout = _bwd_inputs(b, t, lengths, cuda, seed=3)
+    q, k, v = qkv.detach().unbind(2)
+    serving = tatt.flash_attn(q, k, v, mask, 0.125)
+    out, lse = tatt.flash_attn(q, k, v, mask, 0.125, with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, serving)
+    assert lse.shape == (b, nh, t) and lse.dtype == torch.float32
+    s = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) * 0.125
+    s = s + (1.0 - mask.float())[:, None, None, :] * NEG_INF
+    want = torch.logsumexp(s, dim=-1) * 1.4426950408889634
+    real = torch.from_numpy(lengths > 0).to(cuda)
+    assert (lse[real] - want[real]).abs().max().item() <= 1e-4
+    assert bool((lse[~real] < NEG_INF / 2).all())   # no real key
+
+
+@pytest.mark.cuda
+def test_flash_attention_vjp_matches_plain_small(cuda):
+    """Vector-Jacobian products of ``FlashAttention`` against the plain
+    version's at a small shape, for several output gradients, including
+    zero gradient on pad query rows (what the encoder's pooling gives)."""
+    b, t = 2, 128
+    lengths = np.array([128, 37])
+    for seed in range(3):
+        qkv, mask, dout = _bwd_inputs(b, t, lengths, cuda, seed=seed)
+        if seed == 2:
+            dout = dout * mask[:, :, None].to(dout.dtype)
+        out, got = _attn_grads(tatt.FlashAttention.apply, qkv, mask, dout)
+        ref_out, want = _attn_grads(tatt.attention_reference, qkv, mask,
+                                    dout)
+        assert (out.float() - ref_out.float()).abs().max().item() <= 1e-2
+        _assert_grads_close(got, want)

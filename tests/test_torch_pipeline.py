@@ -269,13 +269,29 @@ def _gguf(tmp_path):
     return str(p)
 
 
+def _encoder_checkpoint(tmp_path):
+    """A port training checkpoint of the small test encoder."""
+    from classmate_rag_tpu_torch.embeddings.model import (
+        EncoderConfig,
+        init_params,
+    )
+    from classmate_rag_tpu_torch.training import make_train_step
+    from classmate_rag_tpu_torch.training.checkpoint import save_train_state
+
+    cfg = EncoderConfig.small_test()
+    init, _step = make_train_step(cfg, "cpu")
+    return save_train_state(init(init_params(cfg, "ckpt")),
+                            tmp_path / "ckpt", config=cfg)
+
+
 # Backend and runtime paths beyond the extractive one: (name, env, what
 # the port does). The decoder paths build the port's DecodeRunner where
 # the JAX package builds its TPUDecodeRunner (bounded by
 # TPU_DECODE_MAX_SEQ and LLM_MAX_TOKENS, which both runners honour); a
 # GGUF that does not parse falls through to the extractive runner, as
-# the JAX package's get_runner does; routing and encoder checkpoints are
-# not ported and raise.
+# the JAX package's get_runner does; an encoder checkpoint of the port
+# (ENCODER_CHECKPOINT) serves the runtime's embedder; routing is not
+# ported and raises.
 BOUNDED = dict(TPU_DECODE_MAX_SEQ="96", LLM_MAX_TOKENS="4",
                LLM_TEMPERATURE="0")
 BACKEND_PATHS = [
@@ -285,8 +301,8 @@ BACKEND_PATHS = [
     ("gguf", dict(LLM_BACKEND="auto", LLM_MODEL_PATH="{gguf}"),
      "extractive"),
     ("routing", dict(ENABLE_ROUTING="1"), "raise"),
-    ("encoder checkpoint", dict(ENCODER_CHECKPOINT="{tmp}",
-                                EMBEDDING_BACKEND="e5"), "raise"),
+    ("encoder checkpoint", dict(ENCODER_CHECKPOINT="{ckpt}",
+                                EMBEDDING_BACKEND="e5"), "extractive"),
 ]
 
 
@@ -306,7 +322,8 @@ def test_backend_paths_answer_or_raise(monkeypatch, tmp_path, name, env,
     from classmate_rag_tpu_torch.pipeline.runtime import get_runtime
 
     _env(monkeypatch, tmp_path / "t")
-    subst = {"tmp": str(tmp_path), "gguf": _gguf(tmp_path)}
+    subst = {"tmp": str(tmp_path), "gguf": _gguf(tmp_path),
+             "ckpt": _encoder_checkpoint(tmp_path)}
     for k, v in env.items():
         monkeypatch.setenv(k, v.format(**subst))
     monkeypatch.delenv("LLAMA_CPP_LIB", raising=False)
@@ -316,6 +333,8 @@ def test_backend_paths_answer_or_raise(monkeypatch, tmp_path, name, env,
             get_runtime(reload=True, device="cpu")
         return
     rt = get_runtime(reload=True, device="cpu")
+    if "ENCODER_CHECKPOINT" in env:
+        assert "@ckpt-step_0-" in rt.embedder.model_name
     (tmp_path / "d.txt").write_text("The derivative measures change.")
     t_ingest.ingest_file(path=tmp_path / "d.txt",
                          doc_meta=normalize_cli_metadata(), runtime=rt)
