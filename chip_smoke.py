@@ -72,13 +72,17 @@ Phases, one JSON line each; any failure exits non-zero with no result:
               temperature 0) and a Q8_0 GGUF written by the port loaded
               by DecodeRunner. One JSON line a part, each beside the
               card's name and power limit.
-10. train     the backward kernels (flash_attn_bwd_dkv, flash_attn_bwd_dq)
-              against the plain version's autograd at (B 32, T 128),
-              (16, 256) and (8, 512), 12 heads, padded rows and a row
-              with no real key (cosine >= 0.9999, max |d| <= 2e-2 of the
-              largest plain value), the LSE-writing forward bit-equal to
-              the serving one, and their times (a 'kernels' line, part
-              'train'); one train step at full width and 2 layers on the
+10. train     the backward kernels (flash_attn_bwd_delta, then the fused
+              flash_attn_bwd) against the plain version's autograd at
+              (B 32, T 128), (16, 256), (8, 512) and (4, 200), 12 heads,
+              padded rows and a row with no real key (cosine >= 0.9999,
+              max |d| <= 2e-2 of the largest plain value), the
+              LSE-writing forward bit-equal to the serving one, and their
+              times at the first three shapes, with the held-stream times
+              of D (kernel and four torch ops), of the whole backward,
+              of SDPA's backward and of the f32 workspace's conversion
+              (a 'kernels' line, part 'train'); one train step at full
+              width and 2 layers on the
               card against a CPU copy (loss rel. 1e-3, each gradient
               leaf cosine >= 0.999); then E5-base fine-tuned at full
               width and depth (flash_min_seq 128, B 32 pairs mined from
@@ -149,7 +153,7 @@ PRODUCT_TERMS = 256    # BM25_TERMS_PER_CHUNK of the product phase
 CHUNKS_PER_DOC = 10
 PRODUCT_ASKS = 32
 PRODUCT_CPU_ASKS = 8   # asks held against a store loaded anew on the CPU
-BACKWARD_KERNELS = ("flash_attn_bwd_dkv", "flash_attn_bwd_dq")  # training
+BACKWARD_KERNELS = ("flash_attn_bwd_delta", "flash_attn_bwd")  # training
 
 # Published dense peaks (NVIDIA data sheets): memory bytes/s, bf16
 # tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
@@ -513,7 +517,7 @@ def kernel_phase(ttopk, store, q_dev, peaks):
 # The port's kernels by the names the profiler gives them.
 PORT_KERNELS = ("topk_scan_kernel", "topk_merge_kernel", "bias_gelu_kernel",
                 "residual_ln_kernel", "flash_attn_kernel",
-                "flash_attn_bwd_dkv_kernel", "flash_attn_bwd_dq_kernel")
+                "flash_attn_bwd_kernel", "flash_attn_bwd_delta_kernel")
 TRACES = 4          # profiler sessions tried for one whole trace
 TRACE_AGREE = 0.05  # two whole traces' device times agree within this
 
@@ -616,7 +620,7 @@ def kernel_row(name, source, replaces, shape, err, fn, launches, plain_ms,
                library, bytes_moved, ops, bw, op_peak):
     """One kernel's numbers: ``fn`` calls its wrapper, which counts its
     launches in ``launches``; ``library`` the one PyTorch call that
-    computes the same function; the bound is the larger of bytes over
+    computes the same function (None where there is none); the bound is the larger of bytes over
     the memory rate and operations over the peak rate of their type. No
     device time may fall under the bound."""
     t_bytes = bytes_moved / bw * 1e3
@@ -632,7 +636,7 @@ def kernel_row(name, source, replaces, shape, err, fn, launches, plain_ms,
         "ms": time_ms(fn),
         "ms_single": time_single_ms(fn),
         "plain_ms": plain_ms,
-        "library_ms": time_ms(library),
+        "library_ms": time_ms(library) if library else None,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": bytes_moved,
@@ -640,7 +644,7 @@ def kernel_row(name, source, replaces, shape, err, fn, launches, plain_ms,
         "device_ms": dev,
         "device_traces": traces,
         "queued_ms": queued_ms(fn),
-        "library_device_ms": queued_ms(library),
+        "library_device_ms": queued_ms(library) if library else None,
     }
     check(row["device_ms"] >= BOUND_FLOOR * row["bound_ms"],
           f"{name} {shape}: device time {row['device_ms']} ms under its "
@@ -2112,14 +2116,20 @@ def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def flash_bwd_kernels(tatt, peaks):
-    """flash_attn_bwd_dkv and flash_attn_bwd_dq against the plain
-    version's autograd at (B 32, T 128), (16, 256) and (8, 512), 12
-    heads, with padded rows, a row of one real key and a row of none;
-    the LSE-writing forward bit-equal to the serving forward. Times at
-    the training shape (B 32, T 128): ``library`` is the backward of
-    ``F.scaled_dot_product_attention`` with the same boolean key mask
-    (it computes dq, dk and dv in one call); ``plain`` the plain
-    version's backward."""
+    """The D kernel and the fused backward kernel against the plain
+    version's autograd at (B 32, T 128), (16, 256), (8, 512) and
+    (4, 200), 12 heads, with padded rows, a row of one real key and a
+    row of none; the LSE-writing forward bit-equal to the serving
+    forward. Times at the first three shapes: the fused kernel's
+    ``library`` is the backward of ``F.scaled_dot_product_attention``
+    with the same boolean key mask (dq, dk and dv in one call, its own D
+    included), ``plain`` the plain version's backward; the D kernel's
+    plain version is four torch ops (out·dout in f32, summed). Beside
+    them, on a held stream: the whole backward (``flash_attn_bwd``: D
+    kernel + fused kernel) and, where T > 128, the fused kernel with its
+    counters set past any key-block count, so that no CTA converts the
+    f32 workspace (the difference is the conversion). Returns the
+    (32, 128) rows of both kernels and every shape's."""
     import torch.nn.functional as F
 
     bw, bf16_peak, _f32 = peaks
@@ -2128,7 +2138,7 @@ def flash_bwd_kernels(tatt, peaks):
     rng = np.random.default_rng(13)
     worst = {"dq": (1.0, 0.0), "dk": (1.0, 0.0), "dv": (1.0, 0.0)}
     rows = {}
-    for b, t in ((32, 128), (16, 256), (8, 512)):
+    for b, t in ((32, 128), (16, 256), (8, 512), (4, 200)):
         qkv = torch.from_numpy(rng.normal(0, 1.0, (b, t, 3, nh, hd))
                                .astype(np.float32)).to(torch.bfloat16).cuda()
         qkv.requires_grad_(True)
@@ -2161,11 +2171,17 @@ def flash_bwd_kernels(tatt, peaks):
                   .item(), f"flash_attn_bwd B={b} T={t} {name}: cosine {c}, "
                   f"max |d| {err} (max |plain| {w.abs().max().item()})")
             worst[name] = (min(worst[name][0], c), max(worst[name][1], err))
-        if (b, t) != (32, 128):
+        if t == 200:
             continue
-        # Times at the training shape.
         mask_i = mask.contiguous()
-        delta = (out.float() * dout.float()).view(b, t, nh, hd).sum(-1)
+        delta, ws, count = tatt.flash_attn_bwd_delta(out, dout, nh)
+
+        def torch_delta():  # the plain D: four torch ops
+            return (out.float() * dout.float()).view(b, t, nh, hd).sum(-1)
+
+        d_err = (delta - torch_delta().permute(0, 2, 1)).abs().max().item()
+        check(d_err <= 1e-5 * torch_delta().abs().max().item(),
+              f"flash_attn_bwd_delta B={b} T={t}: max |d| {d_err}")
         keys = int(np.where(lengths > 0, lengths, t).sum())  # what P covers
         qr, kr, vr = (x.clone().requires_grad_(True) for x in (qd, kd, vd))
         ref = tatt.attention_reference(qr, kr, vr, mask, scale)
@@ -2181,32 +2197,44 @@ def flash_bwd_kernels(tatt, peaks):
             return torch.autograd.grad(lib, (qt, kt, vt), dout_t,
                                        retain_graph=True)
 
-        shape = {"B": b, "T": t, "heads": nh, "head_dim": hd,
-                 "keys": keys}
-        qdo = 2 * b * t * h * 2            # q and dO read once
-        kv = 2 * keys * h * 2              # k and v where P covers them
-        rowv = 2 * b * t * nh * 4 + b * t * 4   # lse, delta, mask
+        def fused():
+            return tatt.flash_attn_bwd_fused(qd, kd, vd, dout, mask_i, lse,
+                                             delta, ws, count, scale)
+
+        shape = {"B": b, "T": t, "heads": nh, "head_dim": hd, "keys": keys}
         err = max(e for _c, e in worst.values())
-        rows["dkv"] = kernel_row(
-            "flash_attn_bwd_dkv", "flash_attn_bwd.cu", f"{FLASH_LIB}:941",
-            shape, err,
-            lambda: tatt.flash_attn_bwd_dkv(qd, kd, vd, dout, mask_i, lse,
-                                            delta, scale), tatt.LAUNCHES,
-            plain_ms, library, qdo + kv + rowv + 2 * b * t * h * 2,
-            # S, dP, dV and dK over the keys P covers, every query row.
-            8.0 * nh * hd * t * keys, bw, bf16_peak)
-        rows["dq"] = kernel_row(
-            "flash_attn_bwd_dq", "flash_attn_bwd.cu", f"{FLASH_LIB}:1287",
-            shape, err,
-            lambda: tatt.flash_attn_bwd_dq(qd, kd, vd, dout, mask_i, lse,
-                                           delta, scale), tatt.LAUNCHES,
-            plain_ms, library, qdo + kv + rowv + b * t * h * 2,
-            6.0 * nh * hd * t * keys,   # S, dP and dQ
-            bw, bf16_peak)
-    for row in rows.values():
-        row["worst"] = {n: {"cosine": c, "max_abs_err": e}
-                        for n, (c, e) in worst.items()}
-    return rows["dkv"], rows["dq"]
+        fused_row = kernel_row(
+            "flash_attn_bwd", "flash_attn_bwd.cu",
+            f"{FLASH_LIB}:941 (_flash_attention_bwd_dkv) and :1287 "
+            "(_flash_attention_bwd_dq)", shape, err, fused, tatt.LAUNCHES,
+            plain_ms, library,
+            # q and dO read for every row, k and v where P covers them;
+            # dq, dk, dv written; lse, D and the mask.
+            2 * b * t * h * 2 + 2 * keys * h * 2 + 3 * b * t * h * 2
+            + 2 * b * t * nh * 4 + b * t * 4,
+            # S, dP, dV, dK and dQ over the keys P covers, every query row.
+            10.0 * nh * hd * t * keys, bw, bf16_peak)
+        delta_row = kernel_row(
+            "flash_attn_bwd_delta", "flash_attn_bwd.cu", f"{FLASH_LIB}:273",
+            shape, d_err, lambda: tatt.flash_attn_bwd_delta(out, dout, nh),
+            tatt.LAUNCHES, time_ms(torch_delta), None,
+            2 * b * t * h * 2 + b * t * nh * 4,   # out, dout read; D written
+            2.0 * b * t * h, bw, bf16_peak)
+        delta_row["plain_queued_ms"] = queued_ms(torch_delta)
+        fused_row.update(
+            items=b * nh * -(-t // 128), resident_ctas=tatt.bwd_resident_ctas(),
+            workspace=ws is not None,
+            whole_queued_ms=queued_ms(lambda: tatt.flash_attn_bwd(
+                qd, kd, vd, out, dout, mask_i, lse, scale)))
+        if ws is not None:
+            count.fill_(1 << 30)     # no CTA reaches the last count
+            fused_row["no_conversion_queued_ms"] = queued_ms(fused)
+            count.zero_()
+        rows[(b, t)] = (fused_row, delta_row)
+    for fused_row, _d in rows.values():
+        fused_row["worst"] = {n: {"cosine": c, "max_abs_err": e}
+                              for n, (c, e) in worst.items()}
+    return rows[(32, 128)], [r for pair in rows.values() for r in pair]
 
 
 def train_batches(docs, tokenizer):
@@ -2328,8 +2356,8 @@ def train_phase(tatt, docs, counts, peaks) -> dict:
     one = counts.read()
     per_step = 2 * cfg.layers      # 2 encodes x 12 layers
     want = {k: 0 for k in one}
-    want.update(flash_attn=per_step, flash_attn_bwd_dkv=per_step,
-                flash_attn_bwd_dq=per_step)
+    want.update(flash_attn=per_step, flash_attn_bwd_delta=per_step,
+                flash_attn_bwd=per_step)
     check(one == want, f"one train step launched {one}, want {want}")
     losses = [float(loss)]
 
@@ -2361,7 +2389,7 @@ def train_phase(tatt, docs, counts, peaks) -> dict:
     check(f32_ms > 0, "profile_train: no f32 GEMM kernel in the trace")
     launches = counts.read()
     check(state.step == TRAIN_STEPS, f"trained {state.step} steps")
-    for name in ("flash_attn", "flash_attn_bwd_dkv", "flash_attn_bwd_dq"):
+    for name in ("flash_attn", *BACKWARD_KERNELS):
         check(launches[name] == per_step * TRAIN_STEPS,
               f"{name}: {launches[name]} launches in {TRAIN_STEPS} steps")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2437,14 +2465,15 @@ def train_phase(tatt, docs, counts, peaks) -> dict:
 def train_kernels_and_phase(tatt, docs, counts, peaks):
     """Phase 10: the backward kernels against the plain autograd (a
     'kernels' line, part 'train'), then the training path; returns each
-    backward kernel's row with its launches in the training run."""
+    backward kernel's (B 32, T 128) row with its launches in the
+    training run."""
     t0 = time.perf_counter()
-    dkv, dq = flash_bwd_kernels(tatt, peaks)
+    (fused, delta), all_rows = flash_bwd_kernels(tatt, peaks)
     emit({"phase": "kernels", "part": "train", "card": smi_line(),
-          "kernels": [dkv, dq], "seconds": time.perf_counter() - t0})
+          "kernels": all_rows, "seconds": time.perf_counter() - t0})
     launches = train_phase(tatt, docs, counts, peaks)["launches"]
-    return [(dkv, launches["flash_attn_bwd_dkv"]),
-            (dq, launches["flash_attn_bwd_dq"])]
+    return [(delta, launches["flash_attn_bwd_delta"]),
+            (fused, launches["flash_attn_bwd"])]
 
 
 def main() -> int:

@@ -17,10 +17,14 @@ type, which the reference casts it to at once).
   persistent grid of ``resident_ctas()`` blocks, each walking (batch
   row, head, 128-query tile) items), or raise. When grad is enabled and
   q, k or v requires it, the call goes through ``FlashAttention``: the
-  forward also writes each row's log-sum-exp, and the backward launches
-  ``csrc/flash_attn_bwd.cu``'s two kernels (dK/dV, then dQ), the
-  counterparts of the TPU library's ``_flash_attention_bwd_dkv`` and
+  forward also writes each row's log-sum-exp, and the backward
+  (``flash_attn_bwd``) launches ``csrc/flash_attn_bwd.cu``'s D kernel
+  (D = Σ O·dO) and its fused kernel, which computes dK, dV and dQ in one
+  pass over (128-key block, head, batch row) items: the counterpart of
+  both the TPU library's ``_flash_attention_bwd_dkv`` and
   ``_flash_attention_bwd_dq``. Serving (no grad) passes no LSE pointer.
+- ``flash_attn_bwd_reference``: the backward kernels' own function in
+  plain torch (P recomputed from the base-2 LSE), which CPU tensors take.
 
 The TPU library kernel this replaces took the mask as segment ids,
 which also masks pad QUERY rows; the key-padding form leaves those rows
@@ -45,8 +49,9 @@ from classmate_rag_tpu_torch.ops import _build
 from classmate_rag_tpu_torch.utils.numerics import NEG_INF
 
 # Launches of each kernel, counted where the wrapper launches it.
-LAUNCHES = {"flash_attn": 0, "flash_attn_bwd_dkv": 0,
-            "flash_attn_bwd_dq": 0}
+LAUNCHES = {"flash_attn": 0, "flash_attn_bwd_delta": 0, "flash_attn_bwd": 0}
+
+LOG2E = 1.4426950408889634
 
 HEAD_DIM = 64   # the only head_dim csrc/flash_attn.cu takes (both E5 sizes)
 
@@ -94,19 +99,31 @@ def _launcher():
     return fn
 
 
-def _bwd_launcher(name: str, n_ptr: int):
-    fn = getattr(_build.load("flash_attn_bwd"), f"{name}_launch")
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3 + [
-            ctypes.c_longlong] * 3 + [ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+def _bwd_lib():
+    lib = _build.load("flash_attn_bwd")
+    if lib.flash_attn_bwd_launch.argtypes is None:
+        # Declared, or ctypes passes each pointer as a 32-bit int.
+        lib.flash_attn_bwd_delta_launch.argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.flash_attn_bwd_launch.argtypes = [ctypes.c_void_p] * 12 + [
+            ctypes.c_int] * 3 + [ctypes.c_longlong] * 3 + [
+            ctypes.c_float, ctypes.c_void_p]
+        for fn in (lib.flash_attn_bwd_delta_launch, lib.flash_attn_bwd_launch,
+                   lib.flash_attn_bwd_resident_ctas):
+            fn.restype = ctypes.c_int
+    return lib
 
 
 def resident_ctas() -> int:
     """Blocks of the kernel's persistent grid the current card holds at
     once (CUDA only; builds the kernel if needed)."""
     return int(_build.load("flash_attn").flash_attn_resident_ctas())
+
+
+def bwd_resident_ctas() -> int:
+    """Blocks of the fused backward kernel's persistent grid the current
+    card holds at once (CUDA only; builds the kernel if needed)."""
+    return int(_bwd_lib().flash_attn_bwd_resident_ctas())
 
 
 def _check_qkv(q, k, v, sm_scale):
@@ -156,57 +173,115 @@ def flash_attn(q, k, v, mask, sm_scale, with_lse: bool = False):
     return (out, lse) if with_lse else out
 
 
-def _bwd_launch(name, outs, q, k, v, dout, mask, lse, delta, sm_scale):
-    """Launch ``name`` of csrc/flash_attn_bwd.cu into ``outs`` (bf16
-    [B, T, heads, 64], contiguous)."""
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def flash_attn_bwd_delta(out, dout, heads: int):
+    """The D kernel (CUDA only): ``delta`` f32 [B, heads, T] = Σ out·dout
+    over head_dim, from ``out`` and ``dout`` bf16 [B, T, heads·64]
+    contiguous; and the fused kernel's f32 workspace [B, T, heads, 64]
+    and int32 counters [B, heads, ceil(T / 64)], zeroed by the same
+    kernel, where T spans more than one 128-key block (else both
+    None)."""
+    b, t, h = out.shape
+    if (out.dtype != torch.bfloat16 or dout.dtype != torch.bfloat16
+            or dout.shape != out.shape or h != heads * HEAD_DIM
+            or not (out.is_contiguous() and dout.is_contiguous())):
+        raise ValueError("out and dout must be bf16 [B, T, heads*64] "
+                         "contiguous")
+    dev = out.device
+    delta = torch.empty((b, heads, t), dtype=torch.float32, device=dev)
+    ws = count = None
+    if t > 128:
+        ws = torch.empty((b, t, heads, HEAD_DIM), dtype=torch.float32,
+                         device=dev)
+        count = torch.empty((b, heads, -(-t // 64)), dtype=torch.int32,
+                            device=dev)
+    if b * t == 0:
+        return delta, ws, count
+    with torch.cuda.device(dev):
+        err = _bwd_lib().flash_attn_bwd_delta_launch(
+            out.data_ptr(), dout.data_ptr(), delta.data_ptr(),
+            ws.data_ptr() if ws is not None else None,
+            count.data_ptr() if count is not None else None, b, t, heads,
+            _stream(out))
+    if err != 0:
+        raise RuntimeError(f"flash_attn_bwd_delta launch failed: cudaError "
+                           f"{err}")
+    LAUNCHES["flash_attn_bwd_delta"] += 1
+    return delta, ws, count
+
+
+def flash_attn_bwd_fused(q, k, v, dout, mask, lse, delta, ws, count,
+                         sm_scale):
+    """dq, dk, dv (bf16 [B, T, heads, 64]) of ``flash_attn`` from the
+    fused kernel (CUDA only). ``dout`` bf16 [B, T, heads·64] contiguous,
+    ``mask`` int32 [B, T], ``lse`` the forward's; ``delta``, ``ws`` and
+    ``count`` from ``flash_attn_bwd_delta``."""
     _check_qkv(q, k, v, sm_scale)
     b, t, nh, _hd = q.shape
+    dq, dk, dv = (torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+                  for _ in range(3))
     if b * t == 0:
-        return
-    fn = _bwd_launcher(name, 7 + len(outs))
+        return dq, dk, dv
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                 mask.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                 *(o.data_ptr() for o in outs), b, t, nh, q.stride(1),
-                 dout.stride(1), outs[0].stride(1), sm_scale, stream)
+        err = _bwd_lib().flash_attn_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            mask.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            ws.data_ptr() if ws is not None else None,
+            count.data_ptr() if count is not None else None,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, nh,
+            q.stride(1), dout.stride(1), dq.stride(1), sm_scale, _stream(q))
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
+        raise RuntimeError(f"flash_attn_bwd launch failed: cudaError {err}")
+    LAUNCHES["flash_attn_bwd"] += 1
+    return dq, dk, dv
 
 
-def flash_attn_bwd_dkv(q, k, v, dout, mask, lse, delta, sm_scale):
-    """dk, dv of ``flash_attn`` (the dK/dV kernel; CUDA only). ``dout``
-    bf16 [B, T, heads·64] contiguous, ``mask`` int32 [B, T], ``lse`` the
-    forward's, ``delta`` f32 [B, T, heads] = sum(out · dout)."""
-    dk, dv = (torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
-              for _ in range(2))
-    _bwd_launch("flash_attn_bwd_dkv", (dk, dv), q, k, v, dout, mask, lse,
-                delta, sm_scale)
-    return dk, dv
-
-
-def flash_attn_bwd_dq(q, k, v, dout, mask, lse, delta, sm_scale):
-    """dq of ``flash_attn`` (the dQ kernel; CUDA only); arguments as
-    ``flash_attn_bwd_dkv``'s."""
-    dq = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
-    _bwd_launch("flash_attn_bwd_dq", (dq,), q, k, v, dout, mask, lse, delta,
-                sm_scale)
-    return dq
+def flash_attn_bwd_reference(q, k, v, out, dout, mask, lse, sm_scale):
+    """The backward kernels' function in plain torch, in f32: dq, dk, dv
+    [B, T, heads, head_dim] in q's dtype from the forward's output
+    ``out`` and its gradient ``dout`` [B, T, heads·head_dim], the key
+    mask [B, T] and the forward's base-2 log-sum-exp ``lse`` [B, heads,
+    T]. P = 2^(q·k·sm_scale·log2(e) + bias − lse), with P = 0 on the pad
+    keys of a row that has a real key and P = 1/T over the T keys of a
+    row that has none; D = Σ out·dout in f32."""
+    b, t, nh, hd = q.shape
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    real = mask != 0
+    has_key = real.any(dim=1)[:, None, None, None]
+    s = torch.einsum("bqnd,bknd->bnqk", qf, kf) * (sm_scale * LOG2E)
+    p = torch.exp2(s - lse.float()[..., None])
+    p = torch.where(real[:, None, None, :], p, 0.0)
+    p = torch.where(has_key, p, 1.0 / t)
+    do = dout.float().reshape(b, t, nh, hd)
+    delta = (out.float().reshape(b, t, nh, hd) * do).sum(-1)   # [B, T, nh]
+    dp = torch.einsum("bqnd,bknd->bnqk", do, vf)
+    ds = p * (dp - delta.permute(0, 2, 1)[..., None])
+    dv = torch.einsum("bnqk,bqnd->bknd", p, do)
+    dk = torch.einsum("bnqk,bqnd->bknd", ds, qf) * sm_scale
+    dq = torch.einsum("bnqk,bknd->bqnd", ds, kf) * sm_scale
+    return tuple(x.to(q.dtype) for x in (dq, dk, dv))
 
 
 def flash_attn_bwd(q, k, v, out, dout, mask, lse, sm_scale):
-    """dq, dk, dv (bf16 [B, T, heads, 64]) of ``flash_attn`` from its
-    output ``out``, the output's gradient ``dout`` [B, T, heads·64] and
-    the forward's ``lse``: D = sum(out · dout) over head_dim as a torch
-    op, then the dK/dV kernel and the dQ kernel (CUDA only)."""
-    b, t, nh, hd = q.shape
+    """dq, dk, dv ([B, T, heads, 64]) of ``flash_attn`` from its output
+    ``out``, the output's gradient ``dout`` [B, T, heads·64] and the
+    forward's ``lse``. CPU tensors take ``flash_attn_bwd_reference``;
+    CUDA tensors launch the D kernel and then the fused kernel (bf16),
+    or raise."""
+    if q.device.type == "cpu":
+        return flash_attn_bwd_reference(q, k, v, out, dout, mask, lse,
+                                        sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    nh = q.shape[2]
     mask = mask.to(torch.int32).contiguous()
     dout = dout.to(torch.bfloat16).contiguous()
-    delta = (out.float() * dout.float()).view(b, t, nh, hd).sum(-1)
-    dk, dv = flash_attn_bwd_dkv(q, k, v, dout, mask, lse, delta, sm_scale)
-    dq = flash_attn_bwd_dq(q, k, v, dout, mask, lse, delta, sm_scale)
-    return dq, dk, dv
+    delta, ws, count = flash_attn_bwd_delta(out.contiguous(), dout, nh)
+    return flash_attn_bwd_fused(q, k, v, dout, mask, lse, delta, ws, count,
+                                sm_scale)
 
 
 class FlashAttention(torch.autograd.Function):

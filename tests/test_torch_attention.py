@@ -20,6 +20,7 @@ import torch
 
 from classmate_rag_tpu.embeddings import model as jmodel
 from classmate_rag_tpu_torch.ops import attention as tatt
+from classmate_rag_tpu_torch.utils.numerics import NEG_INF
 
 
 def _bf16(x):
@@ -112,6 +113,9 @@ def test_flash_attention_rejects_bad_inputs():
                              torch.ones(2, 8), 0.25)
     with pytest.raises(ValueError):
         tatt.flash_attention(x, x, x, torch.ones(2, 7), 0.25)
+    with pytest.raises(ValueError):    # the D kernel takes bf16 only
+        tatt.flash_attn_bwd_delta(torch.zeros(2, 8, 64),
+                                  torch.zeros(2, 8, 64), 1)
 
 
 @pytest.mark.parametrize("t,lengths", [(16, [16, 5, 1]),
@@ -158,4 +162,97 @@ def test_attention_grads_match_jax_mha_reference(t, lengths):
         if rows is not None:
             got, w = got[rows], w[rows]
         err = np.abs(got - w).max()
+        assert err <= 1e-4 * np.abs(w).max(), (name, err)
+
+
+def _lse2(q, k, mask, scale):
+    """The forward's base-2 log-sum-exp [B, heads, T] (what flash_attn
+    writes for the backward), in f64 over the same logits."""
+    s = np.einsum("bqnd,bknd->bnqk", q.astype(np.float64),
+                  k.astype(np.float64)) * scale * tatt.LOG2E
+    s = s + np.where(mask[:, None, None, :] == 1, 0.0, NEG_INF)
+    m = s.max(axis=-1)
+    return (m + np.log2(np.exp2(s - m[..., None]).sum(axis=-1))).astype(
+        np.float32)
+
+
+def _bwd_reference(q, k, v, mask, dout, scale):
+    """``flash_attn_bwd`` on CPU tensors (the plain from-LSE backward),
+    fed the f32 plain forward's output and the base-2 LSE."""
+    tq, tk, tv, tm = (torch.from_numpy(x) for x in (q, k, v, mask))
+    out = tatt.attention_reference(tq, tk, tv, tm, scale,
+                                   dtype=torch.float32)
+    got = tatt.flash_attn_bwd(tq, tk, tv, out, torch.from_numpy(dout), tm,
+                              torch.from_numpy(_lse2(q, k, mask, scale)),
+                              scale)
+    return [g.numpy() for g in got]
+
+
+@pytest.mark.parametrize("t,lengths", [
+    (16, [16, 5, 1]),
+    (128, [128, 64, 65, 1]),
+    (200, [200, 73, 1]),          # T cuts the 128-key blocks
+    (256, [40, 256, 129, 1]),     # row 0: its second key block all padding
+])
+def test_bwd_reference_matches_jax_mha_reference(t, lengths):
+    """The plain from-LSE backward (what the kernels compute, and what
+    ``flash_attn_bwd`` runs on CPU tensors) against the JAX library's
+    reference gradients (``mha_reference`` with segment ids, through
+    ``jax.vjp``), with the output gradient zero on pad query rows: dq on
+    real rows, dk and dv on every row. f32 throughout; tolerance 1e-4
+    relative to the largest gradient (f32 sums in other orders, P from
+    the LSE rather than a softmax)."""
+    from jax.experimental.pallas.ops.tpu.flash_attention import (
+        SegmentIds, mha_reference,
+    )
+
+    nh, hd = 2, 64
+    b = len(lengths)
+    q, k, v, mask = _inputs(b, t, nh, hd, lengths, seed=6)
+    rng = np.random.default_rng(7)
+    dout = rng.normal(0, 1, (b, t, nh * hd)).astype(np.float32)
+    dout *= mask[:, :, None]
+    scale = 1.0 / math.sqrt(hd)
+
+    def jax_attn(q, k, v):
+        out = mha_reference(*(x.transpose(0, 2, 1, 3)
+                              for x in (q * scale, k, v)),
+                            None, SegmentIds(q=mask, kv=mask))
+        return out.transpose(0, 2, 1, 3).reshape(b, t, nh * hd)
+
+    _, vjp = jax.vjp(jax_attn, *(jnp.asarray(x) for x in (q, k, v)))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+    got = _bwd_reference(q, k, v, mask, dout, scale)
+    real = mask.astype(bool)
+    for name, g, w, rows in (("dq", got[0], want[0], real),
+                             ("dk", got[1], want[1], None),
+                             ("dv", got[2], want[2], None)):
+        assert g.dtype == np.float32 and g.shape == (b, t, nh, hd)
+        if rows is not None:
+            g, w = g[rows], w[rows]
+        err = np.abs(g - w).max()
+        assert err <= 1e-4 * np.abs(w).max(), (name, err)
+
+
+def test_bwd_reference_matches_autograd_row_without_keys():
+    """A batch row with no real key (P = 1/T over its T keys), a row of
+    one real key and a full one, every query row with an output
+    gradient: the plain from-LSE backward against the plain forward's
+    autograd, f32, 1e-4 relative to the largest gradient."""
+    nh, hd, t = 2, 64, 16
+    lengths = [0, 1, 16]
+    q, k, v, mask = _inputs(len(lengths), t, nh, hd, lengths, seed=8)
+    rng = np.random.default_rng(9)
+    dout = rng.normal(0, 1, (len(lengths), t, nh * hd)).astype(np.float32)
+    scale = 0.125
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = tatt.attention_reference(tq, tk, tv, torch.from_numpy(mask), scale,
+                                   dtype=torch.float32)
+    out.backward(torch.from_numpy(dout))
+    got = _bwd_reference(q, k, v, mask, dout, scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, (tq.grad, tk.grad,
+                                                     tv.grad)):
+        w = w.numpy()
+        assert np.abs(w[0]).max() > 0, name      # the uniform row has one
+        err = np.abs(g - w).max()
         assert err <= 1e-4 * np.abs(w).max(), (name, err)

@@ -18,12 +18,15 @@ Tolerances:
   ones: each weight differs by up to 2^-9 relative), and every row,
   pad-query rows included, finite.
 - the encoder on the card vs on the CPU: per-row cosine ≥ 0.9999.
-- flash_attn_bwd_dkv / flash_attn_bwd_dq: dq, dk and dv against the
-  plain version's autograd on the same bf16 inputs and output gradient,
-  cosine ≥ 0.9999 and max |Δ| ≤ 2e-2 · max |plain| (both round P, dS
-  and the gradients to bf16, at different points); the LSE the forward
-  writes for them within 1e-4 of torch's (base 2, f32), and the forward
-  output with it bit-equal to the serving forward's.
+- flash_attn_bwd (with its D kernel, flash_attn_bwd_delta): dq, dk and
+  dv against the plain version's autograd, and against the plain
+  from-LSE backward (``flash_attn_bwd_reference``), on the same bf16
+  inputs and output gradient: cosine ≥ 0.9999 and max |Δ| ≤ 2e-2 ·
+  max |plain| (the kernel rounds P, dS and the gradients to bf16, the
+  plain versions at other points or not at all); D within 1e-5 relative
+  of torch's f32 sum; the LSE the forward writes for them within 1e-4
+  of torch's (base 2, f32), and the forward output with it bit-equal to
+  the serving forward's.
 """
 
 import numpy as np
@@ -327,15 +330,15 @@ def test_encoder_on_card_matches_cpu(cuda):
     # Inference launches no backward kernel.
     assert {k: after[k] - before[k] for k in after} == {
         "bias_gelu": 2, "residual_ln": 4, "flash_attn": 2,
-        "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0}
+        "flash_attn_bwd_delta": 0, "flash_attn_bwd": 0}
     assert (on_card * on_cpu).sum(dim=1).min().item() >= 0.9999
 
 
-def _bwd_inputs(b, t, lengths, device, seed=0):
+def _bwd_inputs(b, t, lengths, device, seed=0, nh=12):
     """bf16 q, k, v as the encoder's strided views of one leaf that
     requires grad, an int32 key mask and a random output gradient."""
     rng = np.random.default_rng(seed)
-    nh, hd = 12, 64
+    hd = 64
     qkv = rng.normal(0, 1.0, (b, t, 3, nh, hd)).astype(np.float32)
     qkv = torch.from_numpy(qkv).to(torch.bfloat16).to(device)
     qkv.requires_grad_(True)
@@ -355,6 +358,12 @@ def _attn_grads(fn, qkv, mask, dout):
     return out.detach(), qkv.grad.float()
 
 
+def _launched(before):
+    """Backward launches since ``before`` (a copy of LAUNCHES)."""
+    return {k: tatt.LAUNCHES[k] - before[k]
+            for k in ("flash_attn_bwd_delta", "flash_attn_bwd")}
+
+
 def _assert_grads_close(got, want):
     for i, name in enumerate(("dq", "dk", "dv")):
         g, w = got[:, :, i].flatten(), want[:, :, i].flatten()
@@ -366,22 +375,26 @@ def _assert_grads_close(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t", [(32, 128), (16, 256), (8, 512),
-                                 (4, 200)])   # T cuts the 64-row tiles
-def test_flash_attn_bwd_matches_plain(cuda, b, t):
-    """Both backward kernels against the plain version's autograd, with
-    padded rows, a row of one real token and a row with no real key."""
+@pytest.mark.parametrize("b,t,nh", [
+    (32, 128, 12), (16, 256, 12), (8, 512, 12),
+    (4, 200, 12),     # T cuts the 64-row tiles and the 128-key blocks
+    (12, 64, 16),     # 192 items: more than the persistent grid holds
+])
+def test_flash_attn_bwd_matches_plain(cuda, b, t, nh):
+    """The fused backward kernel (after its D kernel) against the plain
+    version's autograd, with padded rows, a row of one real token and a
+    row with no real key: one launch of each a backward."""
     rng = np.random.default_rng(b * t)
     lengths = rng.integers(1, t + 1, b)
     lengths[:3] = (0, 1, t)
-    qkv, mask, dout = _bwd_inputs(b, t, lengths, cuda)
+    qkv, mask, dout = _bwd_inputs(b, t, lengths, cuda, nh=nh)
     before = dict(tatt.LAUNCHES)
     _out, got = _attn_grads(tatt.flash_attention, qkv, mask, dout)
     torch.cuda.synchronize()
-    assert tatt.LAUNCHES["flash_attn_bwd_dkv"] == before[
-        "flash_attn_bwd_dkv"] + 1
-    assert tatt.LAUNCHES["flash_attn_bwd_dq"] == before[
-        "flash_attn_bwd_dq"] + 1
+    assert _launched(before) == {"flash_attn_bwd_delta": 1,
+                                 "flash_attn_bwd": 1}
+    if b * nh > 132:
+        assert b * nh * -(-t // 128) > tatt.bwd_resident_ctas() > 0
     _out, want = _attn_grads(tatt.attention_reference, qkv, mask, dout)
     _assert_grads_close(got, want)
     # Pad keys of a row with real keys: no gradient.
@@ -422,8 +435,58 @@ def test_flash_attention_vjp_matches_plain_small(cuda):
         qkv, mask, dout = _bwd_inputs(b, t, lengths, cuda, seed=seed)
         if seed == 2:
             dout = dout * mask[:, :, None].to(dout.dtype)
+        before = dict(tatt.LAUNCHES)
         out, got = _attn_grads(tatt.FlashAttention.apply, qkv, mask, dout)
+        torch.cuda.synchronize()
+        assert _launched(before) == {"flash_attn_bwd_delta": 1,
+                                     "flash_attn_bwd": 1}
         ref_out, want = _attn_grads(tatt.attention_reference, qkv, mask,
                                     dout)
         assert (out.float() - ref_out.float()).abs().max().item() <= 1e-2
         _assert_grads_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,left", [(32, 128, False), (8, 512, False),
+                                      (4, 200, False), (8, 256, True)])
+def test_flash_attn_bwd_matches_from_lse_reference(cuda, b, t, left):
+    """The D kernel against torch's f32 sum, and the fused kernel against
+    ``flash_attn_bwd_reference`` (the same function from the same LSE,
+    in f32) on one set of inputs, called directly; twice in a row on one
+    D call where the f32 workspace is used (T > 128), which the kernel
+    leaves ready (its counters reset) for another launch. ``left``: the
+    real keys at the end of each row (padding first), so that a row's
+    first key blocks are the ones skipped."""
+    rng = np.random.default_rng(t)
+    lengths = rng.integers(1, t + 1, b)
+    lengths[:3] = (0, 1, t)
+    qkv, mask, dout = _bwd_inputs(b, t, lengths, cuda, seed=5)
+    if left:
+        mask = torch.flip(mask, dims=[1]).contiguous()
+    q, k, v = qkv.detach().unbind(2)
+    nh = q.shape[2]
+    out, lse = tatt.flash_attn(q, k, v, mask, 0.125, with_lse=True)
+    before = dict(tatt.LAUNCHES)
+    delta, ws, count = tatt.flash_attn_bwd_delta(out, dout, nh)
+    got = tatt.flash_attn_bwd_fused(q, k, v, dout, mask, lse, delta, ws,
+                                    count, 0.125)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"flash_attn_bwd_delta": 1,
+                                 "flash_attn_bwd": 1}
+    assert (ws is None) == (t <= 128)
+    want_d = (out.float() * dout.float()).view(b, t, nh, 64).sum(-1)
+    want_d = want_d.permute(0, 2, 1)
+    assert (delta - want_d).abs().max().item() <= (
+        1e-5 * want_d.abs().max().item())
+    want = tatt.flash_attn_bwd_reference(q, k, v, out, dout, mask, lse,
+                                         0.125)
+    _assert_grads_close(torch.stack(got, 2).float(),
+                        torch.stack(want, 2).float())
+    if ws is not None:
+        ws.zero_()
+        again = tatt.flash_attn_bwd_fused(q, k, v, dout, mask, lse, delta,
+                                          ws, count, 0.125)
+        torch.cuda.synchronize()
+        for a, g in zip(again, got):
+            assert (a.float() - g.float()).abs().max().item() <= 2e-2 * (
+                g.float().abs().max().item())

@@ -5,7 +5,8 @@ change as the process ages? On one CUDA card.
 
 At 0, 10, 30, 60, 100, 140, 180 and 220 s after start (the card kept
 busy with f32 products in between) it traces 20 calls in a row of the
-``flash_attn_bwd_dkv`` wrapper (B 32, T 128, 12 heads) in four sessions
+fused backward kernel's wrapper, ``flash_attn_bwd_fused`` (B 32, T 128,
+12 heads), in four sessions
 one after another: CUDA activity alone, the same with 50 ms of host
 time traced before the first call and after the last, and both again
 with CPU activity. The card's name and power limit, then one JSON line
@@ -47,11 +48,12 @@ q, k, v = qkv.unbind(2)
 mask = torch.ones(b, t, dtype=torch.int32, device="cuda")
 dout = torch.randn(b, t, nh * hd, device="cuda").to(torch.bfloat16)
 out, lse = tatt.flash_attn(q, k, v, mask, 0.125, with_lse=True)
-delta = (out.float() * dout.float()).view(b, t, nh, hd).sum(-1)
+delta, ws, count = tatt.flash_attn_bwd_delta(out, dout, nh)
 
 
 def fn():
-    tatt.flash_attn_bwd_dkv(q, k, v, dout, mask, lse, delta, 0.125)
+    tatt.flash_attn_bwd_fused(q, k, v, dout, mask, lse, delta, ws, count,
+                              0.125)
 
 
 def session(pad, cpu):
@@ -69,7 +71,7 @@ def session(pad, cpu):
             time.sleep(pad)
     w1 = time.time_ns()
     evs = prof.profiler.kineto_results.events()
-    kern = [e for e in evs if "flash_attn_bwd_dkv" in e.name()]
+    kern = [e for e in evs if "flash_attn_bwd_kernel" in e.name()]
     launches = [e for e in evs if e.name().startswith("cudaLaunch")]
     by_corr = {e.correlation_id(): e for e in launches}
     skews = []
