@@ -6,8 +6,9 @@ query at the E5-base width (d = 768) over a 200,000-chunk corpus, the
 E5-base encoder (full width, 12 layers, random weights from the model
 name) that ingests passages and encodes the questions it answers, the
 product path, the answer generator (Llama-3.1-8B at full width; it
-runs no hand-written kernel), and the encoder's fine-tuning with the
-flash attention backward kernels.
+runs no hand-written kernel), the encoder's fine-tuning with the
+flash attention backward kernels, and the routed ask with the index's
+admin verbs through the port's command line.
 
     python3 chip_smoke.py            # on a machine with one NVIDIA GPU
     python3 chip_smoke.py --product-child DIR   # phase 8's child alone
@@ -22,8 +23,9 @@ Phases, one JSON line each; any failure exits non-zero with no result:
               time, the plain version's, one PyTorch library call's,
               and the card's bound;
 3. slice      4 batches of 256 queries through IndexStore.hybrid_topk_batch
-              (launch counts reset just before, read just after), each
-              held against the same step on CPU copies of its inputs;
+              (launch counts reset just before, read just after), the
+              first 2 held against the same step on CPU copies of their
+              inputs;
               recall@8 against a numpy oracle; warm batch latency;
 4. approx     one batch with the approx route forced (fast BM25 + exact
               pool rescore), held against the CPU the same way;
@@ -94,7 +96,31 @@ Phases, one JSON line each; any failure exits non-zero with no result:
               products), peak memory, the idle share over 4 steps; the
               checkpoint served by get_embedder on the card
               (256 query vectors, cosine >= 0.99999 to the trained
-              model's, tag ckpt-step_30-<digest>).
+              model's, tag ckpt-step_30-<digest>); the checkpoint is
+              kept for phase 11;
+11. routed    the routed ask and the admin verbs through the port's CLI
+              (classmate_rag_tpu_torch.cli.main): a fresh index, routing
+              on, E5-base at full width in the kernel configuration (the
+              runtime's embedder, handed over as in phase 7), the small
+              decoder (64 new tokens, temperature 0) behind route files
+              for math, code and default (translation falls back to
+              default); the encoder corpus (8,192 passages, 64 courses)
+              loaded with `restore` from a JSONL dump, four files added
+              with `add` (--subject, a code/ folder, two classified);
+              32 questions in one ask_question_batch, 8 asked one at a
+              time, 4 CLI asks forcing math, code, translation and
+              default (launch counts reset just before the restore, read
+              after the last ask: one scan a routed ask); every build
+              and eviction of a decoder watched (one resident at a time,
+              memory back within 5 % after each eviction); the 8 asked
+              again with routing off; decisions and retrieved ids held
+              against a CPU copy of the runtime on the same directory;
+              then `dump`, `delete` + `vacuum`, `rebuild --model` phase
+              10's checkpoint (vectors against a CPU encode of it),
+              `restore` into a second directory (the same ids for every
+              question, every text_sha1 kept) and
+              `python -m classmate_rag_tpu_torch.cli stats` as a
+              subprocess.
 
 Then the kernels line ({"kernels": [...]}), the nvidia-smi line, and
 last {"ok": true, "device": {...}}. A kernel's ``ms`` (and the plain
@@ -132,6 +158,7 @@ DIM = 768
 CHUNKS = 200_000
 BATCH = 256
 N_BATCHES = 4
+CPU_BATCHES = 2        # of them held against the CPU (phase 11's budget)
 K = 8
 POOL = 24
 RRF_K = 60
@@ -908,7 +935,9 @@ def encode_all(enc, sets):
 
 def encoder_phase(rng, docs, counts, peaks, profile_path):
     """E5-base at full width with the slice configuration and the
-    default one, on the card, and the slice configuration on the CPU."""
+    default one, on the card, and the slice configuration on the CPU.
+    Returns the slice encoder, its launch counts and the parameter tree
+    (numpy, random init from the model name; phase 11 serves it)."""
     from classmate_rag_tpu_torch.embeddings.encoder import E5Encoder
     from classmate_rag_tpu_torch.embeddings.model import (
         EncoderConfig,
@@ -1031,7 +1060,7 @@ def encoder_phase(rng, docs, counts, peaks, profile_path):
         emit(profile_batch(forward, str(path),
                            time_single_ms(forward, reps=5, warmup=2),
                            phase="profile_encoder"))
-    return enc, launches
+    return enc, launches, tree
 
 
 def ingest_ask_phase(enc, docs, rng, counts, knobs):
@@ -2306,8 +2335,10 @@ def f32_gemm_ms(events) -> float:
                and any(n in e.key for n in F32_GEMM_KERNELS)) / 1e3
 
 
-def train_phase(tatt, docs, counts, peaks) -> dict:
-    """Phase 10: the training path at E5-base's full width and depth."""
+def train_phase(tatt, docs, counts, peaks, ckpt_dir: Path) -> dict:
+    """Phase 10: the training path at E5-base's full width and depth;
+    the trained state is saved to ``ckpt_dir`` (phase 11 rebuilds onto
+    it)."""
     from classmate_rag_tpu_torch.config import EmbeddingConfig
     from classmate_rag_tpu_torch.embeddings import get_embedder
     from classmate_rag_tpu_torch.embeddings.model import (
@@ -2406,14 +2437,13 @@ def train_phase(tatt, docs, counts, peaks) -> dict:
     rng = np.random.default_rng(21)
     questions = [" ".join(rng.choice(docs[int(i)], size=5, replace=False))
                  for i in rng.integers(0, len(docs), N_QUESTIONS)]
-    with tempfile.TemporaryDirectory() as d:
-        t0 = time.perf_counter()
-        C.save_train_state(state, d, config=cfg)
-        save_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        enc = get_embedder(EmbeddingConfig(embedding_backend="e5"),
-                           checkpoint=d)
-        load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    C.save_train_state(state, ckpt_dir, config=cfg)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    enc = get_embedder(EmbeddingConfig(embedding_backend="e5"),
+                       checkpoint=str(ckpt_dir))
+    load_s = time.perf_counter() - t0
     digest = C._params_digest(state.params.params_numpy())
     check(enc.model_name.endswith(f"@ckpt-step_{TRAIN_STEPS}-{digest}"),
           f"served model name {enc.model_name}")
@@ -2462,18 +2492,632 @@ def train_phase(tatt, docs, counts, peaks) -> dict:
     return line
 
 
-def train_kernels_and_phase(tatt, docs, counts, peaks):
+def train_kernels_and_phase(tatt, docs, counts, peaks, ckpt_dir: Path):
     """Phase 10: the backward kernels against the plain autograd (a
-    'kernels' line, part 'train'), then the training path; returns each
-    backward kernel's (B 32, T 128) row with its launches in the
-    training run."""
+    'kernels' line, part 'train'), then the training path (its
+    checkpoint saved to ``ckpt_dir``); returns each backward kernel's
+    (B 32, T 128) row with its launches in the training run."""
     t0 = time.perf_counter()
     (fused, delta), all_rows = flash_bwd_kernels(tatt, peaks)
     emit({"phase": "kernels", "part": "train", "card": smi_line(),
           "kernels": all_rows, "seconds": time.perf_counter() - t0})
-    launches = train_phase(tatt, docs, counts, peaks)["launches"]
+    launches = train_phase(tatt, docs, counts, peaks, ckpt_dir)["launches"]
     return [(delta, launches["flash_attn_bwd_delta"]),
             (fused, launches["flash_attn_bwd"])]
+
+
+# ---------------------------------------------------------------------------
+# Routing and the admin verbs (phase 11): the routed ask through the
+# sticky loader, and dump / delete / vacuum / rebuild / restore through
+# the port's command line
+# ---------------------------------------------------------------------------
+
+ROUTED_FORCED = ("math", "code", "translation", "default")
+ROUTED_SINGLE = 8          # questions asked one at a time, routed and not
+ROUTE_BAND = 1e-4          # a margin this close to its threshold may flip
+EVICT_MEM_TOL = 0.05       # memory after an eviction vs before the load
+REBUILD_CPU_PASSAGES = 64
+ROUTED_FILES = {
+    # name: (text, CLI flags); the folder "code/" is the code file's hint
+    "calculus.md": (
+        "Limits and derivatives. The derivative of a function at a point "
+        "is the limit of the difference quotient as the step goes to zero. "
+        "It measures the instantaneous rate of change and the slope of the "
+        "tangent line. The product rule, the quotient rule and the chain "
+        "rule compute derivatives of products, quotients and compositions."
+        "\n\n"
+        "Integrals. The definite integral accumulates the signed area under "
+        "a curve between two bounds, as the limit of Riemann sums. The "
+        "fundamental theorem of calculus says that differentiation and "
+        "integration are inverse operations: an antiderivative evaluated at "
+        "the bounds gives the integral. Substitution and integration by "
+        "parts reverse the chain rule and the product rule.\n\n"
+        "Series. A power series converges inside its radius of convergence; "
+        "the Taylor polynomial of degree n approximates a smooth function "
+        "near a point, with a remainder bounded by the next derivative. "
+        "Eigenvalues of a matrix solve the characteristic polynomial; a "
+        "differential equation y' = ky has exponential solutions.",
+        ["--course", "calc101", "--subject", "math"]),
+    "code/sorting.md": (
+        "Sorting algorithms. Quicksort partitions the array around a pivot "
+        "and sorts each side recursively; its average time complexity is "
+        "O(n log n) and its worst case O(n^2). Merge sort splits the list "
+        "in halves, sorts them and merges the sorted halves in linear "
+        "time.\n\n"
+        "def quicksort(xs):\n    if len(xs) <= 1:\n        return xs\n"
+        "    pivot = xs[len(xs) // 2]\n"
+        "    left = [x for x in xs if x < pivot]\n"
+        "    right = [x for x in xs if x > pivot]\n"
+        "    return quicksort(left) + [x for x in xs if x == pivot] + "
+        "quicksort(right)\n\n"
+        "Debugging. A stack trace lists the frames active when the "
+        "exception was raised; read it from the bottom to find the failing "
+        "line. Unit tests with pytest assert the expected output of a "
+        "function; a linked list or a binary tree needs tests for the "
+        "empty structure and a single node.",
+        ["--course", "cs102"]),
+    "lezioni/storia.md": (
+        "La rivoluzione industriale. Nel Settecento l'Inghilterra conobbe "
+        "una trasformazione profonda dell'economia: la macchina a vapore, "
+        "perfezionata da James Watt, mosse i telai delle fabbriche tessili "
+        "e poi le locomotive. Le città crebbero rapidamente e le "
+        "condizioni di lavoro degli operai furono durissime.\n\n"
+        "Le conseguenze sociali. Nacquero i sindacati e i primi partiti "
+        "operai; le leggi sul lavoro minorile limitarono l'orario nelle "
+        "fabbriche. La ferrovia ridusse i tempi di viaggio e unì i mercati "
+        "nazionali, mentre il carbone divenne la fonte di energia "
+        "principale dell'Europa.",
+        ["--course", "storia1", "--language", "it"]),
+    "guide/library.md": (
+        "Campus library guide. The main library opens at eight in the "
+        "morning and closes at midnight during the exam session. Students "
+        "borrow up to ten books for four weeks and renew them online. "
+        "Group study rooms are booked through the student portal for at "
+        "most two hours a day.\n\n"
+        "Printing and scanning. Each student account receives printing "
+        "credit every semester; the scanners on the second floor send "
+        "files to the university email address. Quiet zones are on the "
+        "third floor; phone calls are allowed only in the lobby.",
+        ["--course", "orientation"]),
+}
+ROUTED_QUESTIONS = [
+    "what does the derivative of a function measure",
+    "how does the chain rule compute derivatives of compositions",
+    "what does the fundamental theorem of calculus say",
+    "how do Riemann sums define the definite integral",
+    "when does a power series converge inside its radius",
+    "how does integration by parts reverse the product rule",
+    "what is the average time complexity of quicksort",
+    "how does merge sort merge the sorted halves",
+    "how do I read a stack trace to find the failing line",
+    "what should unit tests with pytest assert",
+    "which tests does a linked list or binary tree need",
+    "what is the worst case of quicksort partitions",
+    "chi perfezionò la macchina a vapore",
+    "quali furono le conseguenze sociali della rivoluzione industriale",
+    "come la ferrovia unì i mercati nazionali",
+    "translate into english: le leggi sul lavoro minorile",
+    "when does the main library close during the exam session",
+    "how many books can students borrow and for how long",
+    "how are group study rooms booked through the portal",
+    "where do the scanners send the scanned files",
+]
+
+
+def _cli_json(cli, argv) -> dict:
+    """Run one verb of the port's command line; its JSON (rc 0 required)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli(argv)
+    check(rc == 0, f"routed: `{' '.join(argv[:2])}` exited {rc}")
+    return json.loads(buf.getvalue())
+
+
+def _ask_ids(results) -> list:
+    return [[r["id"] for r in res] for res in results]
+
+
+def _first_difference(card, cpu):
+    """Where two retrieved lists first differ: the rank and each side's
+    id, fused score and vector distance there (None where they are
+    equal)."""
+    import itertools
+
+    def at(r):
+        return None if r is None else [r["id"], r["scores"].get("fused"),
+                                       r["scores"].get("vector_distance")]
+
+    for rank, (x, y) in enumerate(itertools.zip_longest(card, cpu)):
+        if (x or {}).get("id") != (y or {}).get("id"):
+            return {"rank": rank, "card": at(x), "cpu": at(y),
+                    "lengths": [len(card), len(cpu)]}
+    return None
+
+
+def routed_phase(tree, ckpt_dir: Path, docs, counts) -> dict:
+    """Phase 11: a routed runtime on a fresh index (E5-base at full
+    width in the kernel configuration, the small decoder behind three
+    route files), loaded from a dump of the encoder corpus and four files
+    added through the CLI, asked 32 + 8 + 4 questions; then the admin
+    verbs, a CPU copy of the runtime and the CLI as a subprocess."""
+    import gc
+    import os
+    import weakref
+
+    from classmate_rag_tpu_torch.cli.main import main as cli
+    from classmate_rag_tpu_torch.config import embedding_config_of
+    from classmate_rag_tpu_torch.embeddings import get_embedder
+    from classmate_rag_tpu_torch.embeddings.cache import CachingEmbedder
+    from classmate_rag_tpu_torch.embeddings.encoder import E5Encoder
+    from classmate_rag_tpu_torch.embeddings.model import EncoderConfig
+    from classmate_rag_tpu_torch.generation.runner import DecodeRunner
+    from classmate_rag_tpu_torch.index.catalog import Catalog
+    from classmate_rag_tpu_torch.index.store import IndexStore
+    from classmate_rag_tpu_torch.metadata import DocumentMetadata
+    from classmate_rag_tpu_torch.pipeline import ask as A
+    from classmate_rag_tpu_torch.pipeline import runtime as R
+    from classmate_rag_tpu_torch.routing import loader as L
+
+    t_phase = time.perf_counter()
+    saved_env = dict(os.environ)
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    models = root / "models"
+    models.mkdir()
+    for route in ("math", "code", "default"):
+        # Any file resolves a route; the decoder backend never reads it.
+        (models / f"{route}.gguf").write_bytes(b"route model placeholder")
+    os.environ.update(
+        ENABLE_ROUTING="1", EMBEDDING_BACKEND="e5", LLM_BACKEND="tpu",
+        LLM_TEMPERATURE="0", ROUTE_TEMPERATURE="0",
+        LLM_MAX_TOKENS=str(RUNNER_NEW), ROUTE_MAX_TOKENS=str(RUNNER_NEW),
+        LOG_LEVEL="WARNING", N_SHARDS="1",
+        **{f"ROUTE_{r.upper()}_MODEL_PATH": str(models / f"{r}.gguf")
+           for r in ROUTED_FORCED})   # translation.gguf is absent
+
+    def point(d: Path) -> None:
+        os.environ.update(INDEX_DIR=str(d), BM25_DIR=str(d / "bm25"),
+                          DENSE_DIR=str(d / "dense"),
+                          EMB_CACHE_DIR=str(d / "emb"))
+
+    slice_cfg = dataclasses.replace(EncoderConfig.base(), fused_epilogue=True,
+                                    flash_min_seq=128)
+    enc = E5Encoder(model_name=MODEL_NAME, config=slice_cfg, params=tree)
+
+    def runtime_on(d: Path):
+        """get_runtime on ``d``, then the kernel-configuration encoder
+        handed to it (as phase 7 hands one to the retriever)."""
+        point(d)
+        rt = R.get_runtime(reload=True)
+        emb = CachingEmbedder(enc, cache_dir=str(d / "emb"))
+        check(emb.model_name == rt.store.embedding_model,
+              f"routed: embedder {emb.model_name} vs store "
+              f"{rt.store.embedding_model}")
+        rt.embedder = rt.retriever.embedder = emb
+        return rt
+
+    # ---- set-up: the runtime, and every decoder build and eviction
+    # watched (one decoder on the card at a time).
+    a, b = root / "a", root / "b"
+    t0 = time.perf_counter()
+    rt = runtime_on(a)
+    runtime_s = time.perf_counter() - t0
+    check(rt.store.device.type == "cuda", "routed: runtime not on CUDA")
+    live = weakref.WeakSet()
+    builds, evictions = [], []
+
+    def watched(real):
+        def build(cfg, **kw):
+            gc.collect()
+            check(not any(isinstance(r, DecodeRunner) for r in live),
+                  "routed: a decoder built while another is resident")
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            runner = real(cfg, **kw)
+            torch.cuda.synchronize()
+            builds.append({"s": time.perf_counter() - t0, "mem_before": mem0,
+                           "mem_after": torch.cuda.memory_allocated()})
+            live.add(runner)
+            return runner
+        return build
+
+    real_l, real_r = L.get_runner, R.get_runner
+    L.get_runner, R.get_runner = watched(real_l), watched(real_r)
+    loader = rt.loader
+    check(loader.device.type == "cuda", "routed: loader not on CUDA")
+    real_evict, real_ensure = loader._evict, loader.ensure_loaded
+    resident = []
+
+    def evict():
+        had = loader._resident is not None
+        real_evict()
+        if had:
+            torch.cuda.synchronize()
+            evictions.append(torch.cuda.memory_allocated())
+
+    def ensure(route):
+        runner = real_ensure(route)
+        # Every route resolves to a file (translation to default's), so
+        # every answer must come from the decoder on the card.
+        check(isinstance(runner, DecodeRunner)
+              and runner.device.type == "cuda",
+              f"routed: route {route} answered by {runner!r}")
+        key = [loader.resident_route, Path(loader._resident_path).name]
+        if not resident or resident[-1] != key:
+            resident.append(key)
+        return runner
+
+    loader._evict, loader.ensure_loaded = evict, ensure
+    t0 = time.perf_counter()
+    clf = rt.classifier                  # prototypes from the E5 encoder
+    prototype_s = time.perf_counter() - t0
+    clf_ms, decided = [], []
+    real_scores, real_decide = clf.score_queries, rt.router.decide_batch
+
+    def scores(qs):
+        t0 = time.perf_counter()
+        out = real_scores(qs)
+        clf_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def decide(questions, metas_list, *, forced_subject=None):
+        out = real_decide(questions, metas_list,
+                          forced_subject=forced_subject)
+        decided.extend(out)
+        return out
+
+    clf.score_queries, rt.router.decide_batch = scores, decide
+
+    try:
+        # ---- the main path: every count 0 just before, read just after.
+        counts.reset()
+        corpus = root / "corpus.jsonl"
+        with corpus.open("w", encoding="utf-8") as f:
+            for i in range(ENC_CHUNKS):       # 64 courses of 128 chunks
+                c, k = divmod(i, 128)
+                f.write(json.dumps({"id": f"e{i}", "text": " ".join(docs[i]),
+                                    "metadata": {
+                    "course": f"course{c}", "language": "en",
+                    "doc_type": "txt", "page": 1, "chunk_id": k % 8,
+                    "source_path": f"/corpus/course{c}/doc{k // 8}.txt"}})
+                        + "\n")
+        t0 = time.perf_counter()
+        out = _cli_json(cli, ["restore", "--path", str(corpus)])
+        corpus_s = time.perf_counter() - t0
+        check(out["restored"] == ENC_CHUNKS, f"routed: restored {out}")
+        added = {}
+        files = root / "files"
+        for name, (text, flags) in ROUTED_FILES.items():
+            path = files / name
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_text(text, encoding="utf-8")
+            t0 = time.perf_counter()
+            out = _cli_json(cli, ["add", str(path), *flags])
+            added[name] = {"chunks": out["upserted"],
+                           "s": time.perf_counter() - t0}
+            check(out["upserted"] > 0, f"routed: add {name}: {out}")
+        subjects = {Path(str(e.metadata["source_path"])).name:
+                    e.metadata.get("subject")
+                    for e in rt.catalog.entries()
+                    if not str(e.metadata["source_path"]).startswith(
+                        "/corpus/")}
+        check(subjects["calculus.md"] == "math"
+              and subjects["sorting.md"] == "code",
+              f"routed: subjects at ingest {subjects}")
+
+        rng = np.random.default_rng(11)
+        questions = ROUTED_QUESTIONS + [
+            " ".join(rng.choice(docs[int(i)], size=5, replace=False))
+            for i in rng.integers(0, ENC_CHUNKS,
+                                  32 - len(ROUTED_QUESTIONS))]
+        t0 = time.perf_counter()
+        batch = A.ask_question_batch(questions=questions,
+                                     filters=DocumentMetadata(), top_k=K,
+                                     runtime=rt)
+        batch_s = time.perf_counter() - t0
+        n_asks = 1
+        check(all(r.answer for r in batch), "routed: an empty answer")
+        batch_routes = [r.route for r in batch]
+        check({"math", "code", "default"} <= set(batch_routes),
+              f"routed: the batch decided only {sorted(set(batch_routes))}")
+        single_ms, single_reload = [], []
+        for q in questions[:ROUTED_SINGLE]:
+            n_builds = len(builds)
+            t0 = time.perf_counter()
+            res = A.ask_question(question=q, filters=DocumentMetadata(),
+                                 top_k=K, runtime=rt)
+            single_ms.append((time.perf_counter() - t0) * 1e3)
+            single_reload.append(len(builds) > n_builds)
+            check(bool(res.answer) and res.route == batch[
+                questions.index(q)].route, f"routed: single ask of {q!r}")
+            n_asks += 1
+        cli_asks = []
+        for q, subject in zip(questions[-4:], ROUTED_FORCED):
+            n_builds = len(builds)
+            t0 = time.perf_counter()
+            out = _cli_json(cli, ["ask", q, "--subject", subject])
+            cli_asks.append({"subject": subject, "route": out["route"],
+                             "reason": out["route_reason"],
+                             "reloaded": len(builds) > n_builds,
+                             "s": time.perf_counter() - t0,
+                             "filters": out["filters"],
+                             "retrieved": out["retrieved"]})
+            check(out["route"] == subject and out["route_reason"] == "forced"
+                  and out["answer"], f"routed: CLI ask --subject {subject}")
+            n_asks += 1
+        launches = counts.read()
+        check(launches["topk_scan"] == launches["topk_merge"] == n_asks,
+              f"routed: {launches} for {n_asks} asks")
+        for name, n in launches.items():
+            if name in BACKWARD_KERNELS:
+                check(n == 0, f"routed: {name} was launched")
+            else:
+                check(n > 0, f"routed: {name} was not launched")
+        check(rt._runner is None, "routed: the runtime built its own runner")
+
+        # ---- the same questions with routing off: the loader's decoder
+        # goes first, then the runtime's own runner is built and dropped.
+        loader._evict()
+        rt.cfg = dataclasses.replace(rt.cfg, enable_routing=False)
+        plain_ms = []
+        for q in questions[:ROUTED_SINGLE]:
+            t0 = time.perf_counter()
+            res = A.ask_question(question=q, filters=DocumentMetadata(),
+                                 top_k=K, runtime=rt)
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+            check(bool(res.answer) and res.route is None,
+                  f"routed: unrouted ask of {q!r}")
+        check(isinstance(rt._runner, DecodeRunner), "routed: no own runner")
+        rt._runner = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        evictions.append(torch.cuda.memory_allocated())
+        rt.cfg = dataclasses.replace(rt.cfg, enable_routing=True)
+        check(loader._resident is None, "routed: two decoders resident")
+
+        # ---- a CPU copy of the runtime on the same persisted directory.
+        t0 = time.perf_counter()
+        cpu_catalog = Catalog.load_or_create(rt.cfg.bm25_dir)
+        cpu_store = IndexStore.load_or_create(
+            DIM, rt.cfg.dense_dir, cpu_catalog,
+            slab_rows=rt.store.slab_rows, terms_per_chunk=rt.store.term_width,
+            rescore=rt.store.rescore, rescore_pool=rt.store.rescore_pool,
+            select=rt.store.select, device="cpu")
+        cpu_emb = E5Encoder(model_name=MODEL_NAME, config=slice_cfg,
+                            params=tree, device="cpu")
+        cpu_rt = dataclasses.replace(
+            rt, catalog=cpu_catalog, store=cpu_store, embedder=cpu_emb,
+            retriever=dataclasses.replace(rt.retriever, store=cpu_store,
+                                          catalog=cpu_catalog,
+                                          embedder=cpu_emb),
+            _classifier=None, _router=None, _loader=None, _runner=None)
+        # The plain retrieval on the card's query vectors: the product
+        # phase's bar (a store loaded anew on the CPU, the same queries).
+        same_rt = dataclasses.replace(cpu_rt, retriever=dataclasses.replace(
+            cpu_rt.retriever, embedder=rt.embedder, use_device_encode=False))
+
+        def cpu_asks(crt) -> list:
+            got = A.retrieve_batch_for_ask(
+                questions=questions, filters=DocumentMetadata(), top_k=K,
+                runtime=crt)
+            # --subject is also a metadata filter, as in the JAX CLI.
+            got += [crt.retriever.retrieve(question=q, top_k=K,
+                                           filters=ask["filters"])
+                    for q, ask in zip(questions[-4:], cli_asks)]
+            return [A._apply_expansion_and_diversity(list(r), crt)
+                    for r in got]
+
+        card_results = [r.retrieved for r in batch] + [
+            ask["retrieved"] for ask in cli_asks]
+        asked = questions + questions[-4:]
+
+        def differences(cpu_results) -> list:
+            return [{"question": q, **d} for q, card, cpu in zip(
+                asked, card_results, cpu_results)
+                for d in [_first_difference(card, cpu)] if d]
+
+        same_results = cpu_asks(same_rt)
+        same_diff = differences(same_results)
+        n_compared = len(asked)
+        ids_equal = n_compared - len(same_diff)
+        check(ids_equal / n_compared >= ROWS_AGREE_MIN,
+              f"routed: card and CPU copy retrieved the same ids for "
+              f"{ids_equal} of {n_compared} questions: {same_diff}")
+        # The CPU copy's own query encode (the plain encoder): the same
+        # vectors to the encoder's tolerance, and the same ids except
+        # where the dense branch ranks two chunks the other way round
+        # because their distances lie closer than the two query vectors
+        # differ (|q - q'| bounds every distance's change): both picks
+        # then hold the same rank, so the same fused score.
+        card_q = rt.embedder.encode_queries(questions)
+        query_cos = row_cos(card_q, cpu_emb.encode_queries(questions))
+        check(query_cos >= ENC_COS_MIN,
+              f"routed: card vs CPU query vectors: cosine {query_cos}")
+        noise = math.sqrt(2.0 * (1.0 - query_cos))
+        own_diff = differences(cpu_asks(cpu_rt))
+        check(all(d["card"] and d["cpu"] and d["card"][1] == d["cpu"][1]
+                  and d["card"][2] is not None and d["cpu"][2] is not None
+                  and abs(d["card"][2] - d["cpu"][2]) <= noise
+                  for d in own_diff),
+              f"routed: the CPU copy's own encode ranks otherwise than "
+              f"query noise {noise} allows: {own_diff}")
+        # Decisions: the CPU copy's router (its classifier encoding on
+        # the CPU) on the CPU retrieval's metadata.
+        cpu_decisions = cpu_rt.router.decide_batch(
+            questions, [[r.get("metadata") or {} for r in res]
+                        for res in same_results[:len(questions)]])
+        in_band = 0
+        for q, card, cpu in zip(questions, decided[:len(questions)],
+                                cpu_decisions):
+            if abs(cpu.margin - rt.cfg.route_query_margin) <= ROUTE_BAND:
+                in_band += 1
+                continue
+            check((card.route, card.reason) == (cpu.route, cpu.reason),
+                  f"routed: {q!r} decided {card.route}/{card.reason} on the "
+                  f"card, {cpu.route}/{cpu.reason} on the CPU")
+        worst_score = max(abs(x - y) for card, cpu in zip(decided, cpu_decisions)
+                          for x, y in zip(card.query_scores.values(),
+                                          cpu.query_scores.values()))
+        cpu_s = time.perf_counter() - t0
+        del cpu_rt, same_rt, cpu_store, cpu_catalog, cpu_emb
+
+        # ---- the admin verbs through the CLI.
+        dump = root / "dump.jsonl"
+        t0 = time.perf_counter()
+        out = _cli_json(cli, ["dump", "--path", str(dump)])
+        dump_s = time.perf_counter() - t0
+        n_rows = out["written"]
+        check(n_rows == ENC_CHUNKS + sum(v["chunks"] for v in added.values()),
+              f"routed: dump wrote {n_rows}")
+        library = str(files / "guide/library.md")
+        deleted = _cli_json(cli, ["delete", "--path", library])
+        t0 = time.perf_counter()
+        out = _cli_json(cli, ["vacuum"])
+        vacuum_s = time.perf_counter() - t0
+        reclaimed = int(out["dense"].split("(")[1].split()[0])
+        check(reclaimed == added["guide/library.md"]["chunks"]
+              == len(deleted["ids"]), f"routed: vacuum {out}")
+        ckpt_cpu = get_embedder(embedding_config_of(rt.cfg),
+                                checkpoint=str(ckpt_dir), device="cpu")
+        cache = Path(rt.cfg.emb_cache_dir)
+        before = set(cache.iterdir())
+        t0 = time.perf_counter()
+        out = _cli_json(cli, ["rebuild", "--model", str(ckpt_dir)])
+        torch.cuda.synchronize()
+        rebuild_s = time.perf_counter() - t0
+        check(out["updated"] == n_rows - reclaimed, f"routed: rebuild {out}")
+        check("@ckpt-step_" in rt.embedder.model_name
+              and rt.store.embedding_model == rt.embedder.model_name,
+              f"routed: rebuilt onto {rt.embedder.model_name}")
+        # A cache miss for every text: the checkpoint's own cache
+        # directory holds one vector per distinct text, and no other
+        # model's vectors were read.
+        new_dirs = set(cache.iterdir()) - before
+        distinct = {e.text.strip() for e in rt.catalog.entries()}
+        check(len(new_dirs) == 1 and sum(1 for _ in next(iter(new_dirs))
+                                         .rglob("*.npy")) == len(distinct),
+              f"routed: the rebuild's cache {new_dirs}")
+        entries = list(rt.catalog.entries())[:REBUILD_CPU_PASSAGES]
+        want = ckpt_cpu.encode_passages([e.text for e in entries])
+        rows = [rt.store.id_to_row[e.id] for e in entries]
+        have = rt.store.emb[rows].astype(np.float32)
+        have /= np.linalg.norm(have, axis=1, keepdims=True)
+        rebuild_cos = row_cos(have, want)
+        check(rebuild_cos >= ENC_COS_MIN,
+              f"routed: rebuilt vs CPU checkpoint cosine {rebuild_cos}")
+        del ckpt_cpu
+        # The entry point as a user runs it, on the rebuilt index served
+        # with its checkpoint; it runs while the restore below does.
+        stats_proc = subprocess.Popen(
+            [sys.executable, "-m", "classmate_rag_tpu_torch.cli", "stats"],
+            cwd=str(Path(__file__).resolve().parent),
+            env={**os.environ, "ENCODER_CHECKPOINT": str(ckpt_dir)},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        restore_rt = None
+        try:
+            t0 = time.perf_counter()
+            restore_rt = runtime_on(b)
+            restore_runtime_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out = _cli_json(cli, ["restore", "--path", str(dump)])
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            check(out["restored"] == n_rows, f"routed: restore {out}")
+            again = A.retrieve_batch_for_ask(
+                questions=questions, filters=DocumentMetadata(), top_k=K,
+                runtime=restore_rt)
+            again = [A._apply_expansion_and_diversity(list(r), restore_rt)
+                     for r in again]
+            check(_ask_ids(again) == _ask_ids([r.retrieved for r in batch]),
+                  "routed: the restored index answers other ids")
+            redump = root / "redump.jsonl"
+            _cli_json(cli, ["dump", "--path", str(redump), "--no-emb"])
+
+            def sha(p):
+                return {r["id"]: r["text_sha1"] for r in map(
+                    json.loads, p.read_text(encoding="utf-8").splitlines())}
+
+            check(sha(redump) == sha(dump), "routed: text_sha1 differ after "
+                  "a restore")
+            stdout, stderr = stats_proc.communicate(timeout=300)
+        finally:
+            if stats_proc.poll() is None:
+                stats_proc.kill()
+                stats_proc.wait()
+        check(stats_proc.returncode == 0,
+              f"routed: CLI stats failed: {stderr[-2000:]}")
+        stats = json.loads(stdout)
+        check(stats["action"] == "stats"
+              and stats["vectors"] == n_rows - reclaimed,
+              f"routed: CLI stats {stats}")
+    finally:
+        L.get_runner, R.get_runner = real_l, real_r
+        os.environ.clear()
+        os.environ.update(saved_env)
+        R.reset_runtime()
+
+    # At most one decoder at a time, and each eviction gave its memory
+    # back.
+    check(len(evictions) == len(builds),
+          f"routed: {len(builds)} decoders built, {len(evictions)} freed")
+    mem_back = [abs(e - bld["mem_before"]) / bld["mem_before"]
+                for bld, e in zip(builds, evictions)]
+    check(max(mem_back) <= EVICT_MEM_TOL,
+          f"routed: memory after eviction off by {max(mem_back):.3f}")
+    reasons = {}
+    for d in decided:
+        reasons[d.reason] = reasons.get(d.reason, 0) + 1
+    line = {
+        "phase": "routed", "card": smi_line(), "model": MODEL_NAME,
+        "encoder": "slice configuration (fused_epilogue, flash_min_seq 128)",
+        "decoder": "small (default config), 64 new tokens, temperature 0",
+        "corpus": ENC_CHUNKS, "files": added, "subjects": subjects,
+        "questions": len(questions), "launches": launches, "asks": n_asks,
+        "decisions_by_reason": reasons, "batch_routes": batch_routes,
+        "resident_sequence": resident, "decoder_builds": len(builds),
+        "reload_s": [bld["s"] for bld in builds],
+        "decoder_bytes": [bld["mem_after"] - bld["mem_before"]
+                          for bld in builds],
+        "memory_back_max_rel": max(mem_back),
+        "batch_ask_s": batch_s,
+        "routed_ask_ms": single_ms, "routed_reloaded": single_reload,
+        "routed_ask_p50_ms": float(np.percentile(single_ms, 50)),
+        "unrouted_ask_ms": plain_ms,
+        "unrouted_ask_p50_ms": float(np.percentile(plain_ms, 50)),
+        "cli_asks": [{k: v for k, v in x.items()
+                      if k not in ("retrieved", "filters")}
+                     for x in cli_asks],
+        "classifier_ms": clf_ms, "prototype_s": prototype_s,
+        "cpu_copy": {"ids_equal": ids_equal, "compared": n_compared,
+                     "query_cos_min": query_cos, "distance_noise": noise,
+                     "own_encode_ids_equal": n_compared - len(own_diff),
+                     "own_encode_differences": own_diff,
+                     "decisions_in_band": in_band,
+                     "max_query_score_diff": worst_score, "s": cpu_s},
+        "dump": {"rows": n_rows, "s": dump_s},
+        "vacuum": {"reclaimed": reclaimed, "s": vacuum_s},
+        "rebuild": {"rows": n_rows - reclaimed, "s": rebuild_s,
+                    "passages_per_s": (n_rows - reclaimed) / rebuild_s,
+                    "cos_vs_cpu": rebuild_cos,
+                    "cpu_passages": REBUILD_CPU_PASSAGES},
+        "restore": {"rows": n_rows, "s": restore_s,
+                    "runtime_s": restore_runtime_s, "ids_equal": True,
+                    "text_sha1_equal": True},
+        "cli_stats_subprocess": {"vectors": stats["vectors"]},
+        "setup_s": {"runtime": runtime_s, "corpus_restore": corpus_s},
+        "seconds": time.perf_counter() - t_phase,
+    }
+    del rt, restore_rt, enc
+    tmp.cleanup()
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(line)
+    return line
 
 
 def main() -> int:
@@ -2588,7 +3232,7 @@ def main() -> int:
 
     agree_total, worst = 0, 0.0
     t0 = time.perf_counter()
-    for batch, (out, _rows) in zip(batches, outs):
+    for batch, (out, _rows) in list(zip(batches, outs))[:CPU_BATCHES]:
         q = np.stack([qv for qv, _t in batch])
         cpu = step_on_cpu(hybrid_query_step_split, store, q,
                           [t for _q, t in batch], **knobs)
@@ -2596,7 +3240,7 @@ def main() -> int:
         agree_total += n_agree
         worst = max(worst, diff)
     t_cpu = time.perf_counter() - t0
-    agree_frac = agree_total / (len(batches) * BATCH)
+    agree_frac = agree_total / (CPU_BATCHES * BATCH)
     check(agree_frac >= ROWS_AGREE_MIN,
           f"GPU vs CPU rows agree on {agree_frac:.4f} of queries")
 
@@ -2618,6 +3262,7 @@ def main() -> int:
           "capacity": store.capacity, "batch": BATCH,
           "batches": len(batches), "select": store.select_mode,
           "launches": launches, "rows_agree_gpu_cpu": agree_frac,
+          "cpu_batches": CPU_BATCHES,
           "max_score_diff_gpu_cpu": worst, "recall_at_8": recall,
           "n_oracle": N_ORACLE, "batch_wall_ms": walls,
           "batch_event_ms": events, "warm_batch_ms": warm_wall,
@@ -2700,7 +3345,8 @@ def main() -> int:
     catalog_dir.cleanup()
 
     # ---- 6. encoder, 7. ingest + ask --------------------------------------
-    enc, enc_launches = encoder_phase(rng, docs, counts, peaks, args.profile)
+    enc, enc_launches, enc_tree = encoder_phase(rng, docs, counts, peaks,
+                                                args.profile)
     ingest_ask_phase(enc, docs, rng, counts, knobs)
     del enc, store
     torch.cuda.empty_cache()
@@ -2711,8 +3357,12 @@ def main() -> int:
     # ---- 9. decode -------------------------------------------------------
     decode_phase()
 
-    # ---- 10. train -------------------------------------------------------
-    train_launches = train_kernels_and_phase(tatt, docs, counts, peaks)
+    # ---- 10. train, 11. routed ------------------------------------------
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        train_launches = train_kernels_and_phase(tatt, docs, counts, peaks,
+                                                 Path(ckpt_dir))
+        routed_phase(enc_tree, Path(ckpt_dir), docs, counts)
+    del enc_tree
 
     line = []
     for row, n in ((kern, launches["topk_scan"]),

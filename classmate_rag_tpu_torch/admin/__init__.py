@@ -1,5 +1,5 @@
-"""Admin plane: curation and inspection (port of the JAX package's
-``admin``; ``backup.py`` is not ported yet, ROADMAP §1).
+"""Admin plane: backup/restore, curation and inspection (port of the JAX
+package's ``admin``).
 
 Imports load lazily via ``__getattr__`` so importing this package does
 not pull the device stack.
@@ -8,6 +8,10 @@ not pull the device stack.
 from __future__ import annotations
 
 _EXPORTS = {
+    "dump_index": "classmate_rag_tpu_torch.admin.backup",
+    "restore_dump": "classmate_rag_tpu_torch.admin.backup",
+    "vacuum_indexes": "classmate_rag_tpu_torch.admin.backup",
+    "rebuild_embeddings": "classmate_rag_tpu_torch.admin.backup",
     "list_entries": "classmate_rag_tpu_torch.admin.manage",
     "show_entries_by_id": "classmate_rag_tpu_torch.admin.manage",
     "resolve_ids": "classmate_rag_tpu_torch.admin.manage",

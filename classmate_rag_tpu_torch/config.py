@@ -341,8 +341,8 @@ class EmbeddingConfig:
     # weights); "hash": the hashing embedder.
     embedding_backend: str = "auto"
     embedding_model_dir: Optional[str] = None
-    # Loading a training checkpoint is not ported yet (get_embedder
-    # raises when it is set).
+    # A training checkpoint of the port (training.checkpoint) served in
+    # place of the model's weights.
     encoder_checkpoint: Optional[str] = None
     emb_cache_dir: str = "./indexes/emb_cache"
     # 0 = every local card, 1 = off, n = at most n (the encoder raises

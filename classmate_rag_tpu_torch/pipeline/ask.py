@@ -1,6 +1,6 @@
 """Ask pipeline: retrieve → expand → prompt → (routed) generate → post
-(port of the JAX package's ``pipeline/ask.py``). The routed path reaches
-``Runtime.router``, which raises: routing is not ported yet.
+(port of the JAX package's ``pipeline/ask.py``). The routed path decides
+with ``Runtime.router`` and answers through ``Runtime.loader``.
 
 Call-flow parity with the reference (rag/pipeline/rag.py:511-714):
 retrieval with metadata filters, neighbor expansion + per-doc diversity

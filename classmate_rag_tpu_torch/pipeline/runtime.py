@@ -2,15 +2,15 @@
 of the JAX package's ``pipeline/runtime.py``).
 
 A single ``Runtime`` owns the loaded disk catalog, the device-resident
-IndexStore, the caching embedder, the retriever and the generation
-runner; repeated queries reuse the resident tensors and the runner's
-weights. ``get_runtime(device=None)`` builds it on CUDA; the tests pass
+IndexStore, the caching embedder, the retriever, the generation runner
+and the lazy routing singletons (classifier, router, sticky loader);
+repeated queries reuse the resident tensors and the runner's weights.
+``get_runtime(device=None)`` builds it on CUDA; the tests pass
 ``device="cpu"``.
 
-Not ported yet, and raising instead of taking another route: routing
-(``ENABLE_ROUTING=1``; ROADMAP §1, routing) and the multi-card serving
-engine (``N_SHARDS`` > 1 with more than one card; ROADMAP §1,
-multi-GPU).
+Not ported yet, and raising instead of taking another route: the
+multi-card serving engine (``N_SHARDS`` > 1 with more than one card;
+ROADMAP §1, multi-GPU).
 """
 
 from __future__ import annotations
@@ -39,11 +39,6 @@ from classmate_rag_tpu_torch.retrieval.hybrid import HybridRetriever
 WARMUP_MIN_ROWS = 200_000
 
 
-def _routing_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "routing (ENABLE_ROUTING=1) is not ported yet (ROADMAP §1, routing)")
-
-
 @dataclass
 class Runtime:
     cfg: Config
@@ -62,6 +57,9 @@ class Runtime:
     warmup_thread: Any = field(default=None, repr=False)
     _runner: Any = field(default=None, repr=False)
     _runner_lock: Any = field(default_factory=threading.Lock, repr=False)
+    _classifier: Any = field(default=None, repr=False)
+    _router: Any = field(default=None, repr=False)
+    _loader: Any = field(default=None, repr=False)
 
     @property
     def runner(self):
@@ -77,15 +75,37 @@ class Runtime:
 
     @property
     def classifier(self):
-        raise _routing_not_ported()
+        """Subject prototypes from the runtime's own embedder."""
+        if self._classifier is None:
+            from classmate_rag_tpu_torch.routing import SubjectClassifier
+
+            self._classifier = SubjectClassifier(self.embedder)
+        return self._classifier
 
     @property
     def router(self):
-        raise _routing_not_ported()
+        if self._router is None:
+            from classmate_rag_tpu_torch.routing import HybridRouter
+
+            self._router = HybridRouter(
+                classifier=self.classifier,
+                query_margin=self.cfg.route_query_margin,
+                metadata_threshold=self.cfg.route_metadata_threshold,
+                translation_requires_intent=self.cfg.route_translation_requires_intent,
+            )
+        return self._router
 
     @property
     def loader(self):
-        raise _routing_not_ported()
+        """The routed path's single resident model, on the store's
+        device. A routed ask goes through it and never builds
+        ``runner``; an unrouted one never builds it."""
+        if self._loader is None:
+            from classmate_rag_tpu_torch.routing import StickyModelLoader
+
+            self._loader = StickyModelLoader(self.cfg,
+                                             device=self.store.device)
+        return self._loader
 
     def persist(self) -> None:
         self.catalog.save()
@@ -145,8 +165,6 @@ def get_runtime(reload: bool = False, device: DeviceLike = None) -> Runtime:
         return _RUNTIME
     dev = resolve_device(device)
     cfg = load_config(reload=reload)
-    if cfg.enable_routing:
-        raise _routing_not_ported()
     _check_shards(cfg, dev)
     embedder = get_caching_embedder(embedding_config_of(cfg), device=dev)
     t0 = time.perf_counter()

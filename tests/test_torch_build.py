@@ -52,3 +52,26 @@ def test_real_sources_hash_the_shared_header():
         assert '#include "hopper.cuh"' in (
             _build.CSRC / f"{name}.cu").read_text()
     assert "flash_attn" in _build.sources() and "hopper" not in _build.sources()
+
+
+def test_install_ships_every_package_and_kernel_file():
+    """pyproject.toml lists every package of the port, ships every file
+    the kernels build from (sources and the shared header) and names the
+    port's command line."""
+    import fnmatch
+    import tomllib
+    from pathlib import Path
+
+    root = Path(_build.__file__).resolve().parents[2]
+    meta = tomllib.loads((root / "pyproject.toml").read_text())
+    listed = set(meta["tool"]["setuptools"]["packages"])
+    port = root / "classmate_rag_tpu_torch"
+    packages = {".".join(p.parent.relative_to(root).parts)
+                for p in port.rglob("__init__.py")}
+    assert packages and packages <= listed, packages - listed
+    globs = meta["tool"]["setuptools"]["package-data"][
+        "classmate_rag_tpu_torch.ops"]
+    for f in _build.CSRC.iterdir():
+        assert any(fnmatch.fnmatch(f"csrc/{f.name}", g) for g in globs), f
+    assert meta["project"]["scripts"]["rag-torch"] == (
+        "classmate_rag_tpu_torch.cli.main:main")

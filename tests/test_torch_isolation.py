@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX (nor optax or orbax) nor
-the JAX package, and a default-device call without CUDA raises instead
-of running on the CPU. Both checks run in a fresh interpreter."""
+the JAX package, nor the JAX package's command line (``cli``), and a
+default-device call without CUDA raises instead of running on the CPU.
+Both checks run in a fresh interpreter."""
 
 import os
 import subprocess
@@ -17,7 +18,7 @@ _HOOK = textwrap.dedent("""
         def find_spec(self, name, path=None, target=None):
             top = name.split(".")[0]
             if top in ("jax", "jaxlib", "optax", "orbax",
-                       "classmate_rag_tpu"):
+                       "classmate_rag_tpu", "cli"):
                 raise ImportError(f"the port must not import {name}")
             return None
 
@@ -72,6 +73,18 @@ def test_port_imports_and_queries_without_jax():
                            filters=normalize_cli_metadata(), runtime=rt)
         assert "[1]" in res.answer, res.answer
         make_server("127.0.0.1", 0, runtime=rt).server_close()
+        # Routing, the backup verbs and the command line.
+        from classmate_rag_tpu_torch.cli.main import main as cli_main
+        os.environ.update(ENABLE_ROUTING="1")
+        rt = get_runtime(reload=True, device="cpu")
+        for argv in (["ask", "what does the derivative measure",
+                      "--subject", "math"],
+                     ["dump", "--path", str(root / "dump.jsonl")],
+                     ["vacuum"], ["stats"]):
+            assert cli_main(argv, device="cpu") == 0, argv
+        assert rt.loader.resident_route == "__unresolved__"
+        assert rt._runner is None
+        del os.environ["ENABLE_ROUTING"]
         # The decoder: a tiny GGUF written by the port, answered with
         # LLM_BACKEND=tpu.
         from classmate_rag_tpu_torch.generation import DecodeRunner
@@ -115,7 +128,8 @@ def test_port_imports_and_queries_without_jax():
         assert enc.encode_queries(["a b"]).shape == (1, 64)
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "optax",
-                                               "orbax", "classmate_rag_tpu"))
+                                               "orbax", "classmate_rag_tpu",
+                                               "cli"))
         assert not loaded, loaded
         print("modules", len(names))
     """)
@@ -134,7 +148,9 @@ def test_default_device_without_cuda_raises():
         from classmate_rag_tpu_torch.serve import make_server
         from classmate_rag_tpu_torch.embeddings.model import EncoderConfig
         from classmate_rag_tpu_torch.training import make_train_step
+        from classmate_rag_tpu_torch.cli.main import main as cli_main
         for call in (lambda: IndexStore(8), lambda: resolve_device(None),
+                     lambda: cli_main(["stats"]),
                      lambda: make_train_step(EncoderConfig.small_test()),
                      lambda: resolve_device("cuda"),
                      lambda: get_runtime(reload=True),

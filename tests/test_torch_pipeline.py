@@ -8,8 +8,9 @@ source path — must be EQUAL, and so must every answer, its citations and
 the retrieved ids, with and without filters and neighbour expansion.
 Scores agree within atol/rtol 1e-5. The port's runtime runs on the CPU
 (``device="cpu"``). The decoder backends answer through the port's
-DecodeRunner; where the JAX package would take a path the port has not
-ported, the port raises NotImplementedError.
+DecodeRunner; with routing on, both route every ask through their sticky
+loaders. Where the JAX package would take a path the port has not
+ported (more than one card), the port raises NotImplementedError.
 """
 
 import dataclasses
@@ -290,8 +291,9 @@ def _encoder_checkpoint(tmp_path):
 # TPU_DECODE_MAX_SEQ and LLM_MAX_TOKENS, which both runners honour); a
 # GGUF that does not parse falls through to the extractive runner, as
 # the JAX package's get_runner does; an encoder checkpoint of the port
-# (ENCODER_CHECKPOINT) serves the runtime's embedder; routing is not
-# ported and raises.
+# (ENCODER_CHECKPOINT) serves the runtime's embedder; routing answers
+# through the sticky loader (no route model file here: extractive) and
+# never builds the runtime's own runner.
 BOUNDED = dict(TPU_DECODE_MAX_SEQ="96", LLM_MAX_TOKENS="4",
                LLM_TEMPERATURE="0")
 BACKEND_PATHS = [
@@ -300,7 +302,7 @@ BACKEND_PATHS = [
                          **BOUNDED), "decoder"),
     ("gguf", dict(LLM_BACKEND="auto", LLM_MODEL_PATH="{gguf}"),
      "extractive"),
-    ("routing", dict(ENABLE_ROUTING="1"), "raise"),
+    ("routing", dict(ENABLE_ROUTING="1"), "routed"),
     ("encoder checkpoint", dict(ENCODER_CHECKPOINT="{ckpt}",
                                 EMBEDDING_BACKEND="e5"), "extractive"),
 ]
@@ -328,10 +330,6 @@ def test_backend_paths_answer_or_raise(monkeypatch, tmp_path, name, env,
         monkeypatch.setenv(k, v.format(**subst))
     monkeypatch.delenv("LLAMA_CPP_LIB", raising=False)
     _FAILED_GGUF_RESOLVES.clear()
-    if expect == "raise":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_runtime(reload=True, device="cpu")
-        return
     rt = get_runtime(reload=True, device="cpu")
     if "ENCODER_CHECKPOINT" in env:
         assert "@ckpt-step_0-" in rt.embedder.model_name
@@ -341,6 +339,17 @@ def test_backend_paths_answer_or_raise(monkeypatch, tmp_path, name, env,
     res = ask_question(question="what does the derivative measure",
                        filters=normalize_cli_metadata(), runtime=rt)
     assert res.answer
+    if expect == "routed":
+        from classmate_rag_tpu.routing import StickyModelLoader as JLoader
+        from classmate_rag_tpu_torch.routing import ROUTES
+
+        assert res.route in ROUTES and res.route_reason
+        assert next(rt.catalog.entries()).metadata["subject"] in ROUTES
+        assert rt._runner is None
+        assert type(rt.loader.ensure_loaded(res.route)) is ExtractiveRunner
+        assert type(JLoader(jload(reload=True)).ensure_loaded(
+            res.route)).__name__ == "ExtractiveRunner"
+        return
     want = {"decoder": DecodeRunner, "extractive": ExtractiveRunner}[expect]
     assert type(rt.runner) is want
     # The JAX package builds the counterpart on the same configuration.
@@ -351,16 +360,38 @@ def test_backend_paths_answer_or_raise(monkeypatch, tmp_path, name, env,
 
 
 def test_routed_ask_and_more_cards_raise(runtimes, monkeypatch):
+    from classmate_rag_tpu.metadata import normalize_cli_metadata as jmeta
+    from classmate_rag_tpu.pipeline.ask import ask_question as jask
+    from classmate_rag_tpu.pipeline.ask import ask_question_batch as jb
     from classmate_rag_tpu_torch.metadata import normalize_cli_metadata
-    from classmate_rag_tpu_torch.pipeline.ask import ask_question
+    from classmate_rag_tpu_torch.pipeline.ask import (
+        ask_question,
+        ask_question_batch,
+    )
     from classmate_rag_tpu_torch.pipeline.runtime import _check_shards
 
-    _jrt, trt, _ = runtimes
-    trt.cfg = dataclasses.replace(trt.cfg, enable_routing=True)
-    with pytest.raises(NotImplementedError, match="routing"):
-        ask_question(question="what is the derivative",
-                     filters=normalize_cli_metadata(), runtime=trt,
-                     forced_subject="math")
+    jrt, trt, _ = runtimes
+    for rt in (jrt, trt):
+        rt.cfg = dataclasses.replace(rt.cfg, enable_routing=True)
+    # A routed ask answers as the JAX package's does: the same route,
+    # reason and retrieved ids, forced or decided by the router.
+    for forced in (None, "math", "matematica", "bogus"):
+        for q in QUESTIONS:
+            a = jask(question=q, filters=jmeta(), forced_subject=forced,
+                     runtime=jrt)
+            b = ask_question(question=q, filters=normalize_cli_metadata(),
+                             forced_subject=forced, runtime=trt)
+            assert (b.route, b.route_reason) == (a.route, a.route_reason)
+            _same_result(a, b)
+    a = jb(questions=QUESTIONS, filters=jmeta(subject="code"), runtime=jrt)
+    b = ask_question_batch(questions=QUESTIONS,
+                           filters=normalize_cli_metadata(subject="code"),
+                           runtime=trt)
+    assert [(x.route, x.route_reason) for x in b] == [
+        (x.route, x.route_reason) for x in a] and b[0].route == "code"
+    for x, y in zip(a, b):
+        _same_result(x, y)
+    assert trt._runner is None
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     for n, raises in ((0, True), (2, True), (1, False)):
         cfg = dataclasses.replace(trt.cfg, n_shards=n)
