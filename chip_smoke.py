@@ -7,8 +7,9 @@ E5-base encoder (full width, 12 layers, random weights from the model
 name) that ingests passages and encodes the questions it answers, the
 product path, the answer generator (Llama-3.1-8B at full width; it
 runs no hand-written kernel), the encoder's fine-tuning with the
-flash attention backward kernels, and the routed ask with the index's
-admin verbs through the port's command line.
+flash attention backward kernels, the routed ask with the index's
+admin verbs through the port's command line, and the corpus-sharded
+serving engine with data-parallel encode.
 
     python3 chip_smoke.py            # on a machine with one NVIDIA GPU
     python3 chip_smoke.py --product-child DIR   # phase 8's child alone
@@ -121,6 +122,26 @@ Phases, one JSON line each; any failure exits non-zero with no result:
               question, every text_sha1 kept) and
               `python -m classmate_rag_tpu_torch.cli stats` as a
               subprocess.
+12. sharded   (run after phase 7, on the slice store it still holds)
+              ShardedHybridIndex over the slice store with 4 logical
+              shards on cuda:0 (65,536 rows a shard; the code that puts
+              one shard on each of 4 cards): the 4 slice batches and
+              one filtered batch (launch counts reset just before, read
+              just after: 4 scans and 4 merges a batch), rows equal to
+              store.hybrid_topk_batch on the card for >= 99.9 % of
+              queries and every other query a near-tie (one fused score,
+              branch scores within 1e-4), recall@8 against the oracle,
+              warm batch latency against the single-device step in turns;
+              then a 10-chunk document added, a chunk deleted, a tag
+              edited and 64 embeddings updated, each refreshed from the
+              store's journal with bytes placed under a quarter of the
+              initial placement and answers equal to the store's; 8
+              ask_question calls through a HybridRetriever on the engine
+              (ids equal to one device's); then E5-base in the kernel
+              configuration with 2 data-parallel replicas on cuda:0
+              encodes 1,024 passages (launch counts 12/24/12 a forward a
+              replica; cosine >= 0.99999 to the single-device encode);
+              placed bytes and peak memory.
 
 Then the kernels line ({"kernels": [...]}), the nvidia-smi line, and
 last {"ok": true, "device": {...}}. A kernel's ``ms`` (and the plain
@@ -1168,6 +1189,264 @@ def ingest_ask_phase(enc, docs, rng, counts, knobs):
           "ingest_s": {"encode": t_encode, "encode_and_upsert": t_ingest},
           "cache_files": cache_files})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Corpus-sharded serving (phase 12): the slice store behind 4 logical
+# shards on the one card, and the data-parallel encoder
+# ---------------------------------------------------------------------------
+
+SHARDS = 4             # logical shards of phase 12, all on SHARD_DEVICE
+SHARD_DEVICE = "cuda:0"
+DP = 2                 # data-parallel encoder replicas, both on cuda:0
+DP_PASSAGES = 1024
+DP_COS_MIN = 0.99999   # data-parallel vs single-device encode, each row
+FUSED_TIE = 1e-6       # two picks at one RRF rank hold one fused score
+
+
+def compare_engine(got, want) -> dict:
+    """The sharded engine's batch against the single-device step's:
+    queries with equal rows, the largest score difference over them, and
+    each query that differs with whether every differing pick is a
+    near-tie (one fused score, vector distance and BM25 score within
+    STEP_TOL: two rows whose branch scores part by rounding)."""
+    g = [t.cpu().numpy() for t in got]
+    w = [t.cpu().numpy() for t in want]
+    same = (g[0] == w[0]).all(axis=1)
+    worst = 0.0
+    for a, b in zip(g[1:], w[1:]):
+        ok = same[:, None] & ~np.isnan(a) & ~np.isnan(b)
+        check(bool(((np.isnan(a) == np.isnan(b)) | ~same[:, None]).all()),
+              "sharded: a branch returned a row on one side only")
+        if ok.any():
+            worst = max(worst, float(np.abs(a - b)[ok].max()))
+    differing = []
+    for q in np.nonzero(~same)[0]:
+        cols = np.nonzero(g[0][q] != w[0][q])[0]
+        tie = bool(
+            (np.abs(g[1][q, cols] - w[1][q, cols]) <= FUSED_TIE).all()
+            and all(np.allclose(g[i][q, cols], w[i][q, cols], equal_nan=True,
+                                rtol=STEP_TOL, atol=STEP_TOL)
+                    for i in (2, 3)))
+        differing.append({"query": int(q), "cols": cols.tolist(),
+                          "engine": g[0][q, cols].tolist(),
+                          "single": w[0][q, cols].tolist(),
+                          "near_tie": tie})
+    check(all(d["near_tie"] for d in differing),
+          f"sharded: rows differ beyond a near-tie: {differing[:3]}")
+    return {"rows_equal": int(same.sum()), "queries": len(same),
+            "max_score_diff": worst, "differing": differing}
+
+
+def sharded_phase(store, catalog, batches, oracle_sets, questions, enc,
+                  tree, docs, rng, counts, knobs) -> None:
+    """The corpus-sharded engine (ShardedHybridIndex) over the slice
+    store with 4 logical shards on cuda:0, then data-parallel encode."""
+    from classmate_rag_tpu_torch.config import load_config
+    from classmate_rag_tpu_torch.embeddings.encoder import E5Encoder
+    from classmate_rag_tpu_torch.embeddings.hashing import HashingEmbedder
+    from classmate_rag_tpu_torch.index.catalog import CatalogEntry
+    from classmate_rag_tpu_torch.metadata import normalize_cli_metadata
+    from classmate_rag_tpu_torch.parallel import (
+        ShardedHybridIndex,
+        corpus_mesh,
+    )
+    from classmate_rag_tpu_torch.pipeline.ask import ask_question
+    from classmate_rag_tpu_torch.pipeline.runtime import Runtime
+    from classmate_rag_tpu_torch.retrieval.hybrid import HybridRetriever
+
+    t_phase = time.perf_counter()
+    dev = torch.device(SHARD_DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = ShardedHybridIndex(store, corpus_mesh(devices=[dev] * SHARDS),
+                                **knobs)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    placed = engine.bytes_placed_total
+    where = {"course": chunk_meta(5)["course"]}
+    runs = [(b, None) for b in batches] + [(batches[0], where)]
+
+    def ask(path, batch, w):
+        q = np.stack([qv for qv, _t in batch])
+        terms = [t for _q, t in batch]
+        if path == "engine":
+            return engine.query_batch(q, terms, w, **knobs)
+        return store.hybrid_topk_batch(q, terms, w, **knobs)
+
+    ask("engine", batches[0], None).rows.cpu()         # first use: warm
+    # The main path: every count 0 just before, read just after.
+    counts.reset()
+    outs = [ask("engine", b, w) for b, w in runs]
+    rows = [o.rows.cpu() for o in outs]
+    launches = counts.read()
+    for name in ("topk_scan", "topk_merge"):
+        check(launches[name] == SHARDS * len(runs),
+              f"sharded: {name} launches {launches[name]} != "
+              f"{SHARDS * len(runs)}")
+    batch_cmp = [compare_engine(o, ask("single", b, w))
+                 for o, (b, w) in zip(outs, runs)]
+    n_equal = sum(c["rows_equal"] for c in batch_cmp)
+    n_total = sum(c["queries"] for c in batch_cmp)
+    check(n_equal / n_total >= ROWS_AGREE_MIN,
+          f"sharded: rows equal one device on {n_equal}/{n_total}")
+    worst = max(c["max_score_diff"] for c in batch_cmp)
+    check(worst <= STEP_TOL, f"sharded: scores differ by {worst}")
+    got = torch.cat(rows[: len(batches)]).numpy()
+    overlaps = [len({int(r) for r in got[j] if r >= 0} & want)
+                / max(len(want), 1) for j, want in enumerate(oracle_sets)]
+    recall = float(np.mean(overlaps))
+    check(recall >= RECALL_MIN, f"sharded: recall@8 {recall}")
+    filtered = rows[-1].numpy()
+    check(all(chunk_meta(int(r))["course"] == where["course"]
+              for r in filtered.ravel() if r >= 0),
+          "sharded: the filtered batch returned another course")
+
+    # Warm batch latency, the engine and one device in turns.
+    walls = {"engine": [], "single": []}
+    for b in batches:
+        for path in ("single", "engine", "engine", "single"):
+            t0 = time.perf_counter()
+            ask(path, b, None).rows.cpu()
+            walls[path].append((time.perf_counter() - t0) * 1e3)
+
+    # Mutations through the store's journal, each refreshed O(delta).
+    new_ids = [f"n{i}" for i in range(CHUNKS_PER_DOC)]
+    new_docs = [docs[int(i)] for i in rng.integers(0, len(docs),
+                                                   CHUNKS_PER_DOC)]
+    new_emb = rng.standard_normal((CHUNKS_PER_DOC, DIM)).astype(np.float32)
+    new_emb /= np.linalg.norm(new_emb, axis=1, keepdims=True)
+    victim = store.ids[17]
+    probe = ask("engine", [(store.emb[17].astype(np.float32), docs[17][:5])],
+                None).rows.cpu().numpy()
+    check(probe[0, 0] == 17, f"sharded: row 17's own vector found {probe}")
+    tag_row = 23
+    upd = rng.choice(len(docs), 64, replace=False)
+    upd_emb = rng.standard_normal((64, DIM)).astype(np.float32)
+    upd_emb /= np.linalg.norm(upd_emb, axis=1, keepdims=True)
+
+    def add_doc():
+        store.upsert(new_ids, new_emb, new_docs,
+                     [chunk_meta(i) for i in range(CHUNKS_PER_DOC)])
+        for cid, toks in zip(new_ids, new_docs):
+            catalog.upsert(CatalogEntry(cid, " ".join(toks), toks,
+                                        chunk_meta(0)))
+
+    def delete_one():
+        store.delete([victim])
+        catalog.delete([victim])
+
+    def edit_tag():
+        meta = {**chunk_meta(tag_row), "tag_phase12": True}
+        store.upsert([store.ids[tag_row]],
+                     store.emb[tag_row:tag_row + 1].astype(np.float32),
+                     [docs[tag_row]], [meta])
+
+    def update_embeddings():
+        store.upsert([store.ids[int(i)] for i in upd], upd_emb,
+                     [docs[int(i)] for i in upd],
+                     [chunk_meta(int(i)) for i in upd])
+
+    mutations = {}
+    for name, fn in (("add_doc", add_doc), ("delete", delete_one),
+                     ("tag", edit_tag), ("embeddings", update_embeddings)):
+        fn()
+        t0 = time.perf_counter()
+        engine.ensure_fresh()
+        torch.cuda.synchronize()
+        refresh_ms = (time.perf_counter() - t0) * 1e3
+        moved = engine.bytes_placed_last_refresh
+        check(moved < placed / 4,
+              f"sharded: {name} moved {moved} B of {placed} placed")
+        cmp = [compare_engine(ask("engine", b, w), ask("single", b, w))
+               for b, w in ((batches[1], None), (batches[1], where))]
+        check(all(c["rows_equal"] / c["queries"] >= ROWS_AGREE_MIN
+                  for c in cmp), f"sharded: rows after {name}: {cmp}")
+        mutations[name] = {"bytes_placed_last_refresh": moved,
+                           "refresh_ms": refresh_ms,
+                           "rows_equal": [c["rows_equal"] for c in cmp],
+                           "max_score_diff": max(c["max_score_diff"]
+                                                 for c in cmp)}
+    check(engine.full_lexical_rebuilds == 0,
+          "sharded: a small mutation rebuilt the whole split layout")
+    probe = ask("engine", [(store.emb[17].astype(np.float32), docs[17][:5])],
+                None).rows.cpu().numpy()
+    check(17 not in probe, "sharded: the deleted chunk came back")
+
+    # ask_question through a runtime whose retriever asks the engine.
+    cfg = dataclasses.replace(load_config(), llm_backend="extractive")
+    embedder = HashingEmbedder(DIM)
+    answers = {}
+    for name, sh in (("engine", engine), ("single", None)):
+        ret = HybridRetriever(store, catalog, embedder, sharded=sh)
+        rt = Runtime(cfg=cfg, catalog=catalog, store=store,
+                     embedder=embedder, retriever=ret, sharded=sh)
+        counts.reset()
+        answers[name] = [ask_question(question=q,
+                                      filters=normalize_cli_metadata(),
+                                      runtime=rt) for q in questions]
+        if name == "engine":
+            ask_launches = counts.read()
+    ids = {k: [[r["id"] for r in a.retrieved] for a in v]
+           for k, v in answers.items()}
+    check(ids["engine"] == ids["single"],
+          "sharded: ask_question ids differ from one device's")
+    check(ask_launches["topk_scan"] == SHARDS * len(questions),
+          f"sharded: asks launched {ask_launches['topk_scan']} scans")
+    engine_stats = engine.stats()
+    peak = torch.cuda.max_memory_allocated()
+    del engine
+
+    # Data-parallel encode: DP replicas on cuda:0, the kernel config.
+    passages = [" ".join(d) for d in docs[:DP_PASSAGES]]
+    dp_enc = E5Encoder(model_name=MODEL_NAME, config=enc.config,
+                       params=tree, data_parallel=DP, device=dev,
+                       devices=[dev] * DP)
+    check(dp_enc._dp == DP, f"data-parallel degree {dp_enc._dp}")
+    dp_enc.encode_passages(passages[:64])        # first use: warm
+    counts.reset()
+    vecs, secs, shapes = encode_all(dp_enc, {"passages": (
+        passages, "encode_passages")})
+    dp_launches = counts.read()
+    n_fwd = DP * len(shapes)          # every padded batch splits in DP
+    n_flash = DP * sum(1 for _b, t in shapes
+                       if t >= enc.config.flash_min_seq and t % 128 == 0)
+    n_layers = enc.config.layers
+    want = {"bias_gelu": n_layers * n_fwd, "residual_ln": 2 * n_layers * n_fwd,
+            "flash_attn": n_layers * n_flash}
+    check(all(dp_launches[k] == v for k, v in want.items()),
+          f"data-parallel launches {dp_launches} != {want}")
+    single, single_s, _ = encode_all(enc, {"passages": (
+        passages, "encode_passages")})
+    cos = row_cos(vecs["passages"], single["passages"])
+    check(cos >= DP_COS_MIN, f"data-parallel cosine {cos}")
+    del dp_enc
+    torch.cuda.empty_cache()
+
+    line = {
+        "phase": "sharded", "shards": SHARDS, "devices": [str(dev)] * SHARDS,
+        "chunks": CHUNKS, "capacity": store.capacity, "batch": BATCH,
+        "batches": len(runs), "filter": where, "launches": launches,
+        "rows_equal_one_device": [n_equal, n_total],
+        "differing": [d for c in batch_cmp for d in c["differing"]],
+        "max_score_diff": worst, "recall_at_8": recall,
+        "n_oracle": len(oracle_sets),
+        "batch_wall_ms": walls,
+        "warm_batch_ms": {k: statistics.median(v) for k, v in walls.items()},
+        "build_s": build_s, "bytes_placed_initial": placed,
+        "bytes_placed_total": engine_stats["bytes_placed_total"],
+        "mutations": mutations, "asks": len(questions),
+        "ask_ids_equal": True, "ask_launches": ask_launches,
+        "stats": engine_stats, "max_memory_allocated": peak,
+        "data_parallel": {"replicas": DP, "passages": DP_PASSAGES,
+                          "forwards": len(shapes), "launches": dp_launches,
+                          "cos_vs_single_device": cos,
+                          "encode_s": secs["passages"],
+                          "single_device_encode_s": single_s["passages"]},
+        "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi_line(),
+    }
+    emit(line)
 
 
 # ---------------------------------------------------------------------------
@@ -3249,11 +3528,12 @@ def main() -> int:
     q_or = np.stack([qv for qv, _t in queries[:N_ORACLE]])
     sims_all = emb @ q_or.T                                   # [N, 64]
     got = torch.cat([r for _o, r in outs]).numpy()
-    overlaps = []
+    overlaps, oracle_sets = [], []
     for j, (qv, terms) in enumerate(queries[:N_ORACLE]):
         want = set(oracle_query(qv, terms, emb, bm25, sims_all[:, j]))
         have = {int(r) for r in got[j] if r >= 0}
         overlaps.append(len(have & want) / max(len(want), 1))
+        oracle_sets.append(want)
     recall = float(np.mean(overlaps))
     t_oracle = time.perf_counter() - t0
     check(recall >= RECALL_MIN, f"recall@8 {recall} < {RECALL_MIN}")
@@ -3341,14 +3621,18 @@ def main() -> int:
     emit({"phase": "retriever", "questions": len(questions) + 1,
           "results": sum(len(g) for g in got), "bm25_hits": n_bm25,
           "filter": {"course": course}})
-    del catalog, cpu_store, gpu_ret, cpu_ret
-    catalog_dir.cleanup()
+    del cpu_store, gpu_ret, cpu_ret      # the catalog serves phase 12
 
     # ---- 6. encoder, 7. ingest + ask --------------------------------------
     enc, enc_launches, enc_tree = encoder_phase(rng, docs, counts, peaks,
                                                 args.profile)
     ingest_ask_phase(enc, docs, rng, counts, knobs)
-    del enc, store
+
+    # ---- 12. sharded: on the slice store, so it runs here -----------------
+    sharded_phase(store, catalog, batches, oracle_sets, questions, enc,
+                  enc_tree, docs, rng, counts, knobs)
+    del enc, store, catalog
+    catalog_dir.cleanup()
     torch.cuda.empty_cache()
 
     # ---- 8. product ------------------------------------------------------

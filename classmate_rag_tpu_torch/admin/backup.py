@@ -13,11 +13,8 @@ reference, as in the JAX package:
 - ``vacuum`` actually compacts: tombstoned rows are reclaimed from the
   device store and the catalog is rewritten atomically;
 - ``rebuild_embeddings`` re-encodes straight from the in-memory catalog in
-  device-sized batches, into a store on the runtime's device.
-
-The JAX package's rebuild also rebuilds its multi-chip serving engine;
-the port's runtime has none (``Runtime.sharded`` is always None until
-the multi-GPU item of ROADMAP §1), so that step has no counterpart here.
+  device-sized batches, into a store on the runtime's device, and wraps
+  the new store in a new corpus-sharded engine where the runtime had one.
 """
 
 from __future__ import annotations
@@ -218,8 +215,18 @@ def rebuild_embeddings(
     # compare on the next cold start.
     new_store.embedding_model = getattr(embedder, "model_name", None)
     new_store.save(catalog_fingerprint=rt.catalog.fingerprint())
+    # Swap the runtime onto the new store and embedder, the sharded
+    # engine included: it wraps one store instance and would otherwise
+    # keep serving the pre-rebuild embeddings.
     rt.store = new_store
     rt.embedder = embedder
     rt.retriever.store = new_store
     rt.retriever.embedder = embedder
+    if rt.sharded is not None:
+        from classmate_rag_tpu_torch.pipeline.runtime import (
+            build_sharded_index,
+        )
+
+        rt.sharded = build_sharded_index(rt.cfg, new_store)
+        rt.retriever.sharded = rt.sharded
     return {"updated": updated, "model": new_model_name}

@@ -10,10 +10,19 @@ run the same forward shapes. Weights live on the encoder's device.
 ``encode_queries_device`` returns the vectors as a tensor on that device
 in input order (a gather on the device restores it), for the retriever
 to hand to the fused hybrid step without a host fetch.
+
+Data parallelism (``data_parallel`` != 1, the JAX package's
+``_init_data_parallel``): a replica of the model on each of the first
+``dp`` local devices; each padded batch splits into ``dp`` equal row
+blocks, encoded on their devices and concatenated on the first. Per-row
+math does not depend on the batch; a library GEMM may pick another
+algorithm for a half batch, so the vectors equal the single-device
+path's up to that rounding (bit for bit in the CPU tests).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List, Optional, Sequence
 
@@ -34,17 +43,21 @@ from classmate_rag_tpu_torch.embeddings.tokenizer import (
     load_tokenizer,
     pad_to_bucket,
 )
+from classmate_rag_tpu_torch.parallel.mesh import local_devices
 
 # Target tokens per forward; batch = budget / bucket_len.
 _TOKENS_PER_STEP = 16384
 
 
-def data_parallel_degree(data_parallel: int, device: torch.device) -> int:
-    """The JAX package's clamp: 1 stays 1; 0 means every local card, n
-    at most n; then the largest power of two <= min(cards, 8)."""
+def data_parallel_degree(data_parallel: int, device: torch.device,
+                         n_devices: Optional[int] = None) -> int:
+    """The JAX package's clamp: 1 stays 1; 0 means every local device
+    (``n_devices``, default ``device``'s local cards), n at most n; then
+    the largest power of two <= min(devices, 8), so that it divides every
+    padded batch (8, 64, 2^k)."""
     if data_parallel == 1:
         return 1
-    avail = torch.cuda.device_count() if device.type == "cuda" else 1
+    avail = len(local_devices(device)) if n_devices is None else n_devices
     want = avail if data_parallel <= 0 else min(data_parallel, avail)
     return 1 << (min(want, 8).bit_length() - 1) if want > 1 else 1
 
@@ -62,14 +75,16 @@ class E5Encoder:
         params: Optional[Params] = None,
         data_parallel: int = 1,
         device: DeviceLike = None,
+        devices: Optional[Sequence[DeviceLike]] = None,
     ) -> None:
+        """``devices``: where the data-parallel replicas go (default
+        ``device``'s local cards; the first should be ``device``, where
+        the outputs gather)."""
         self.device = resolve_device(device)
-        dp = data_parallel_degree(data_parallel, self.device)
-        if dp > 1:
-            raise NotImplementedError(
-                f"data_parallel={data_parallel} would encode on {dp} cards; "
-                "multi-GPU encoding is not ported yet (ROADMAP, queue item "
-                "'Multi-GPU'). Pass data_parallel=1.")
+        devs = ([resolve_device(d) for d in devices] if devices is not None
+                else local_devices(self.device))
+        self._dp = data_parallel_degree(data_parallel, self.device,
+                                        len(devs))
         self.model_name = model_name
         self.config = config or EncoderConfig.for_model_name(model_name)
         self.dim = self.config.hidden
@@ -85,18 +100,39 @@ class E5Encoder:
         if params is None:
             params = init_params(self.config, seed_key=model_name)
         self.model = params_from_numpy(params, self.config, self.device)
+        # (device, model) of each data-parallel replica, one a device
+        # (repeats too); the first is ``model`` when it sits on the
+        # encoder's device.
+        self._replicas = [
+            (d, self.model if i == 0 and d == self.device
+             else params_from_numpy(params, self.config, d))
+            for i, d in enumerate(devs[: self._dp])
+        ] if self._dp > 1 else []
         self.last_flops = 0.0
 
     # ------------------------------------------------------------------
     def _dispatch_bucket(self, ids: np.ndarray,
                          mask: np.ndarray) -> torch.Tensor:
-        """One forward on the device; returns [B, H] (not fetched)."""
-        with torch.no_grad():
-            out = self.model(torch.from_numpy(ids).to(self.device),
-                             torch.from_numpy(mask).to(self.device))
+        """One forward; returns [B, H] on the encoder's device (not
+        fetched). With replicas, each takes one of ``dp`` equal row
+        blocks on its own device."""
         self.last_flops += encoder_flops(self.config, ids.shape[0],
                                          ids.shape[1])
-        return out
+        with torch.no_grad():
+            if not self._replicas or ids.shape[0] % self._dp:
+                return self.model(torch.from_numpy(ids).to(self.device),
+                                  torch.from_numpy(mask).to(self.device))
+            outs = []
+            for (dev, model), i, m in zip(
+                    self._replicas, np.split(ids, self._dp),
+                    np.split(mask, self._dp)):
+                ctx = (torch.cuda.device(dev) if dev.type == "cuda"
+                       else contextlib.nullcontext())
+                with ctx:
+                    out = model(torch.from_numpy(i).to(dev),
+                                torch.from_numpy(m).to(dev))
+                outs.append(out.to(self.device, non_blocking=True))
+            return torch.cat(outs)
 
     def _dispatch_groups(self, texts: Sequence[str], prefix: str):
         """Tokenize, bucket, and run one forward per padded batch.

@@ -230,6 +230,10 @@ def _pad_pow2(arr: np.ndarray, fill) -> np.ndarray:
     return out
 
 
+# The columns of ``split_query_arrays`` the single-device step reads.
+STEP_COLUMNS = ("h_slots", "h_tids", "u_starts", "u_lens", "u_cols", "t_tids")
+
+
 def split_query_arrays(
     lut: np.ndarray,
     offsets: np.ndarray,
@@ -250,9 +254,11 @@ def split_query_arrays(
 
     ``ov_offsets`` adds OVERLAY segments: per-term windows into the
     overlay region at ``ov_start`` (plan_tail_delta), scattering into the
-    same term column as the base segments. The segment table is the JAX
-    package's, less the ``u_tids``/``u_occ``/``u_ov`` columns that only
-    its sharded path reads.
+    same term column as the base segments. ``u_tids``/``u_occ``/``u_ov``
+    record each segment's term, its occurrence index within its class
+    and the class (0 base / 1 overlay), so ``shard_tail_ranges`` can
+    re-derive per-shard windows; the single-device step reads only the
+    first six columns (``STEP_COLUMNS``).
     """
     safe = np.maximum(q_tids, 0)
     slots = np.where(q_tids >= 0, lut[safe], -1).astype(np.int32)
@@ -276,32 +282,138 @@ def split_query_arrays(
         else np.zeros(0, np.int32)
     )
     t_tids = _pad_pow2(rare_tids, -1)
-    seg_col, seg_start, seg_len = [], [], []
+    seg_t, seg_col, seg_start, seg_len, seg_occ, seg_ov = ([] for _ in range(6))
     ranges = [(offsets, 0)]
     if ov_offsets is not None:
         ranges.append((ov_offsets, ov_start))
     for col, t in enumerate(rare_tids):
-        for offs, base in ranges:
+        for ov, (offs, base) in enumerate(ranges):
             start = int(offs[t])
             ln = int(offs[t + 1]) - start
-            for k in range(0, ln, r_cap):
+            for occ, k in enumerate(range(0, ln, r_cap)):
+                seg_t.append(t)
                 seg_col.append(col)
                 seg_start.append(base + start + k)
                 seg_len.append(min(r_cap, ln - k))
+                seg_occ.append(occ)
+                seg_ov.append(ov)
     u_cols = _pad_pow2(np.asarray(seg_col, np.int32), -1)
-    u_starts = np.zeros(len(u_cols), dtype=np.int32)
-    u_lens = np.zeros(len(u_cols), dtype=np.int32)
-    if seg_col:
-        u_starts[: len(seg_col)] = seg_start
-        u_lens[: len(seg_col)] = seg_len
-    return {
+    out = {
         "h_slots": h_slots,
         "h_tids": h_tids,
-        "u_starts": u_starts,
-        "u_lens": u_lens,
+        "u_tids": _pad_pow2(np.asarray(seg_t, np.int32), -1),
         "u_cols": u_cols,
         "t_tids": t_tids,
     }
+    for name, vals in (("u_starts", seg_start), ("u_lens", seg_len),
+                       ("u_occ", seg_occ), ("u_ov", seg_ov)):
+        col = np.zeros(len(u_cols), dtype=np.int32)
+        col[: len(vals)] = vals
+        out[name] = col
+    return out
+
+
+def shard_postings(
+    post_rows: np.ndarray,
+    post_tfs: np.ndarray,
+    offsets: np.ndarray,
+    n_shards: int,
+    n_local: int,
+    r_cap: int,
+    reserve: int = 0,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Partition term-sorted tail postings by corpus shard (row // n_local).
+
+    Row ids become SHARD-LOCAL; per-shard per-term offsets are rebuilt so
+    each shard can slice its own contiguous posting windows. Returns
+    (post_rows_sh [S, Pmax] i32, post_tfs_sh [S, Pmax] u8,
+    offsets_sh [S, V+1] i64); Pmax is padded by r_cap like the global
+    layout (the scorer's window clamp) plus ``reserve`` slots per shard
+    for the O(delta) overlay region (which starts at each shard's
+    ``offsets_sh[s, -1]``).
+    """
+    n_vocab = len(offsets) - 1
+    p = int(offsets[-1])
+    rows = post_rows[:p].astype(np.int64)
+    tfv = post_tfs[:p]
+    term_of = np.repeat(
+        np.arange(n_vocab, dtype=np.int64), np.diff(offsets)
+    )
+    shard_of = rows // n_local
+
+    local_rows, local_tfs = [], []
+    counts_sh = np.zeros((n_shards, n_vocab), dtype=np.int64)
+    for s in range(n_shards):
+        sel = shard_of == s        # stable → term grouping preserved
+        local_rows.append((rows[sel] - s * n_local).astype(np.int32))
+        local_tfs.append(tfv[sel])
+        counts_sh[s] = np.bincount(term_of[sel], minlength=n_vocab)
+    offsets_sh = np.zeros((n_shards, n_vocab + 1), dtype=np.int64)
+    np.cumsum(counts_sh, axis=1, out=offsets_sh[:, 1:])
+
+    pmax = max((len(r) for r in local_rows), default=0)
+    p_pad = max(8, _round_up(pmax + reserve + r_cap, 128))
+    post_rows_sh = np.zeros((n_shards, p_pad), dtype=np.int32)
+    post_tfs_sh = np.zeros((n_shards, p_pad), dtype=np.uint8)
+    for s in range(n_shards):
+        post_rows_sh[s, : len(local_rows[s])] = local_rows[s]
+        post_tfs_sh[s, : len(local_tfs[s])] = local_tfs[s]
+    return post_rows_sh, post_tfs_sh, offsets_sh
+
+
+def shard_tail_ranges(
+    offsets_sh: np.ndarray,     # i64 [S, V+1]
+    u_tids: np.ndarray,         # i32 [U], -1 padded (segments share tid)
+    r_cap: int = TAIL_SEG_CAP,
+    u_occ: Optional[np.ndarray] = None,   # i32 [U] within-class occurrence
+    u_ov: Optional[np.ndarray] = None,    # i32 [U] 0 base / 1 overlay
+    ov_offsets_sh: Optional[np.ndarray] = None,  # i64 [S, V+1]
+    ov_starts_sh: Optional[np.ndarray] = None,   # i64 [S] region starts
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-shard (u_starts, u_lens) [S, U] for the batch's tail SEGMENT
+    table (the segment/tid layout stays global and replicated; each shard
+    fills its own, possibly shorter, posting list into the term's
+    segment slots). A shard never needs more segments than the global
+    list does, since its local list is a subset.
+
+    With overlay tables, slots flagged ``u_ov`` resolve against the
+    per-shard overlay ranges (region at ``ov_starts_sh[s]``) instead of
+    the base offsets: the same windowing rule on a different list."""
+    s = offsets_sh.shape[0]
+    u = len(u_tids)
+    if u_occ is not None:
+        occ = u_occ.astype(np.int64)
+    else:
+        # Occurrence index of each segment slot within its term.
+        occ = np.zeros(u, dtype=np.int64)
+        seen: Dict[int, int] = {}
+        for j, t in enumerate(u_tids):
+            t = int(t)
+            if t < 0:
+                continue
+            occ[j] = seen.get(t, 0)
+            seen[t] = int(occ[j]) + 1
+
+    u_starts_sh = np.zeros((s, u), dtype=np.int32)
+    u_lens_sh = np.zeros((s, u), dtype=np.int32)
+    real = u_tids >= 0
+    if real.any():
+        tids = np.maximum(u_tids, 0).astype(np.int64)
+        starts = offsets_sh[:, :-1][:, tids]          # [S, U]
+        total = offsets_sh[:, 1:][:, tids] - starts
+        if u_ov is not None and ov_offsets_sh is not None:
+            ov_s = ov_offsets_sh[:, :-1][:, tids]
+            ov_total = ov_offsets_sh[:, 1:][:, tids] - ov_s
+            ov_flag = (u_ov > 0)[None, :]
+            starts = np.where(
+                ov_flag, ov_starts_sh[:, None] + ov_s, starts
+            )
+            total = np.where(ov_flag, ov_total, total)
+        seg_off = (occ * r_cap)[None, :]
+        ln = np.clip(total - seg_off, 0, r_cap)
+        u_starts_sh[:] = (starts + np.minimum(seg_off, total)).astype(np.int32)
+        u_lens_sh[:] = np.where(real[None, :], ln, 0).astype(np.int32)
+    return u_starts_sh, u_lens_sh
 
 
 def head_tf_columns(
@@ -495,12 +607,25 @@ def okapi_score_rows(term_ids, tfs, doc_len, avgdl, w, vocab_pad: int):
     return (gathered * torch.where(term_ids >= 0, sat, 0.0)).sum(-1)
 
 
+def subset_sums(mask_bias: torch.Tensor, doc_len: torch.Tensor):
+    """(keep [N] bool, kept rows i64, their length sum f64): exact in any
+    order (lengths are token counts), so the sums of a sharded corpus's
+    parts add up to the whole corpus's bit for bit."""
+    keep = mask_bias == 0.0
+    return (keep, keep.sum(),
+            torch.where(keep, doc_len, 0.0).to(torch.float64).sum())
+
+
+def okapi_subset(n_kept: torch.Tensor, dl_sum: torch.Tensor):
+    """(n_sub, avgdl) f32 from the exact sums of ``subset_sums``."""
+    n_sub = torch.clamp(n_kept.float(), min=1.0)
+    return n_sub, dl_sum.float() / n_sub
+
+
 def subset_stats(mask_bias: torch.Tensor, doc_len: torch.Tensor):
     """(keep [N] bool, n_sub, avgdl) over the rows the mask keeps."""
-    keep = mask_bias == 0.0
-    n_sub = torch.clamp(keep.float().sum(), min=1.0)
-    avgdl = torch.where(keep, doc_len, 0.0).sum() / n_sub
-    return keep, n_sub, avgdl
+    keep, n_kept, dl_sum = subset_sums(mask_bias, doc_len)
+    return (keep, *okapi_subset(n_kept, dl_sum))
 
 
 def subset_df(term_ids, tfs, keep, vocab_pad: int) -> torch.Tensor:

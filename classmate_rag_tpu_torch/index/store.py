@@ -17,7 +17,9 @@ through the frozen-head + tail-overlay planner
 ``compact``, a backlog over a quarter of the rows, a capture dropped at
 ``_OLD_LEX_CAP``, an overlay past its reserve) takes the full path;
 ``device_full_uploads``, ``split_full_builds`` and
-``split_snapshot_restores`` count those paths.
+``split_snapshot_restores`` count those paths. A second journal
+(``_j_*``, ``drain_journal``) feeds the corpus-sharded serving engine
+(``parallel/serving.py``) the same rows, for its own O(delta) refresh.
 
 Persistence is the JAX package's format, byte for byte: ``embeddings.npy``
 and ``rows.json`` (with ``emb_stat``), the v2 ``lexical.*.npy`` slabs and
@@ -52,6 +54,7 @@ from classmate_rag_tpu_torch.index.filters import (
     mask_bias_device,
 )
 from classmate_rag_tpu_torch.index.lexical import (
+    STEP_COLUMNS,
     bm25_split_score_core,
     build_split_layout,
     head_tf_columns,
@@ -94,7 +97,7 @@ _OLD_LEX_CAP = 65536
 _OLD_MISSING = object()
 
 
-def _device_row_set(t: torch.Tensor, rows, vals: np.ndarray) -> None:
+def device_row_set(t: torch.Tensor, rows, vals: np.ndarray) -> None:
     """In-place row scatter into a resident tensor: ``t[rows] = vals``
     along dim 0. ``rows`` are distinct, so ``index_copy_`` is
     deterministic (the reference pads updates to a power of two by
@@ -105,7 +108,7 @@ def _device_row_set(t: torch.Tensor, rows, vals: np.ndarray) -> None:
     t.index_copy_(0, idx, src.to(t.dtype))
 
 
-def _device_col_set(t: torch.Tensor, cols, vals: np.ndarray) -> None:
+def device_col_set(t: torch.Tensor, cols, vals: np.ndarray) -> None:
     """In-place column scatter into a resident [F, cap] tensor:
     ``t[:, cols] = vals`` with ``vals`` [F, R]."""
     idx = torch.as_tensor(np.asarray(cols, np.int64), device=t.device)
@@ -182,6 +185,15 @@ class IndexStore:
         # which make the resident tensors' row space stale.
         self._epoch = 0
         self._dev_epoch = -1
+        # Mutation journal of the sharded serving engine
+        # (parallel/serving.py), drained by drain_journal: the rows
+        # touched since the last drain, and each lexical row's
+        # pre-mutation (term_ids, tfs) (None = fresh slot). Its own
+        # consumer, beside the store's device-sync twins below.
+        self._j_emb: set = set()
+        self._j_lex: set = set()
+        self._j_meta: set = set()
+        self._j_old_lex: Dict[int, Any] = {}
         # Device-sync journal: rows touched since the last sync, and each
         # lexical row's pre-mutation (term_ids, tfs) (None = fresh slot).
         self._dev_j_emb: set = set()
@@ -426,6 +438,7 @@ class IndexStore:
             # Journal what actually changed (fresh rows change
             # everything; identical re-upserts journal nothing).
             if fresh or not np.array_equal(self.emb[row], emb_new):
+                self._j_emb.add(row)
                 self._dev_j_emb.add(row)
                 self._dirty_rows.add(row)
             if fresh or not (
@@ -435,16 +448,22 @@ class IndexStore:
             ):
                 # First-touch capture of the row's pre-mutation lexical
                 # content: the tail-posting planner needs the old terms
-                # to neutralize their base/overlay entries.
+                # to neutralize their base/overlay entries. Each journal
+                # (the engine's, the device sync's) keeps its own.
+                old = None if fresh else (
+                    self.term_ids[row].copy(), self.tfs[row].copy()
+                )
+                if (
+                    row not in self._j_old_lex
+                    and len(self._j_old_lex) < _OLD_LEX_CAP
+                ):
+                    self._j_old_lex[row] = old
                 if (
                     row not in self._dev_j_lex
                     and len(self._dev_old_lex) < _OLD_LEX_CAP
                 ):
-                    self._dev_old_lex[row] = (
-                        None if fresh else (
-                            self.term_ids[row].copy(), self.tfs[row].copy()
-                        )
-                    )
+                    self._dev_old_lex[row] = old
+                self._j_lex.add(row)
                 self._dev_j_lex.add(row)
                 self._dirty_rows.add(row)
                 lex_changed = True
@@ -474,6 +493,7 @@ class IndexStore:
             self.tag_bits[row] = bits
             self.valid[row] = True
             if meta_changed:
+                self._j_meta.add(row)
                 self._dev_j_meta.add(row)
                 self._dirty_rows.add(row)
         # Any mutation moves filtered-subset membership.
@@ -508,6 +528,7 @@ class IndexStore:
                 if self._df_host is not None:
                     self._df_note(self.term_ids[row], self.tfs[row], -1)
                 self.valid[row] = False
+                self._j_meta.add(row)
                 self._dev_j_meta.add(row)
                 self._dirty_rows.add(row)
                 n += 1
@@ -549,6 +570,10 @@ class IndexStore:
         self._dirty = True
         # Row identities moved: incremental deltas are meaningless now.
         self._epoch += 1
+        self._j_emb.clear()
+        self._j_lex.clear()
+        self._j_meta.clear()
+        self._j_old_lex.clear()
         self._dev_j_emb.clear()
         self._dev_j_lex.clear()
         self._dev_j_meta.clear()
@@ -559,6 +584,22 @@ class IndexStore:
         self._dirty_rows.clear()
         self._need_full_save = True
         return reclaimed
+
+    def drain_journal(self):
+        """Consume the engine's mutation journal: (epoch, emb_rows,
+        lex_rows, meta_rows, old_lex), clearing the row sets. ``old_lex``
+        maps each lexical row to its pre-mutation (term_ids, tfs), None
+        for a fresh slot. The epoch is not reset: a consumer compares it
+        with the epoch it placed at, and a mismatch (capacity growth,
+        compaction) means a full re-place. One consumer: the sharded
+        serving engine."""
+        out = (
+            self._epoch, self._j_emb, self._j_lex, self._j_meta,
+            self._j_old_lex,
+        )
+        self._j_emb, self._j_lex, self._j_meta = set(), set(), set()
+        self._j_old_lex = {}
+        return out
 
     # ------------------------------------------------------------------
     # Device state
@@ -613,14 +654,14 @@ class IndexStore:
         if self._dev_j_emb:
             rows = sorted(self._dev_j_emb)
             vals = self.emb[rows]
-            _device_row_set(d["emb"], rows, vals)
+            device_row_set(d["emb"], rows, vals)
             if d["emb16"] is not None:
-                _device_row_set(d["emb16"], rows, vals)
+                device_row_set(d["emb16"], rows, vals)
         if self._dev_j_lex:
             rows = sorted(self._dev_j_lex)
-            _device_row_set(d["term_ids"], rows, self.term_ids[rows])
-            _device_row_set(d["tfs"], rows, self.tfs[rows])
-            _device_row_set(d["doc_len"], rows, self.doc_len[rows])
+            device_row_set(d["term_ids"], rows, self.term_ids[rows])
+            device_row_set(d["tfs"], rows, self.tfs[rows])
+            device_row_set(d["doc_len"], rows, self.doc_len[rows])
             self._df_filter_cache.clear()
             # _df_cache stays: upsert/delete keep the host df (and so
             # its upload) O(delta).
@@ -633,9 +674,9 @@ class IndexStore:
                     )
         if self._dev_j_meta or self._dev_j_lex:
             rows = sorted(self._dev_j_meta | self._dev_j_lex)
-            _device_row_set(d["valid"], rows, self.valid[rows])
-            _device_col_set(d["field_cols"], rows, self.field_cols[:, rows])
-            _device_row_set(d["tag_bits"], rows,
+            device_row_set(d["valid"], rows, self.valid[rows])
+            device_col_set(d["field_cols"], rows, self.field_cols[:, rows])
+            device_row_set(d["tag_bits"], rows,
                             self.tag_bits[rows].view(np.int32))
             self._df_filter_cache.clear()  # subset membership moved
             self._nofilter_bias = None
@@ -808,9 +849,9 @@ class IndexStore:
         cols = head_tf_columns(
             lut, c_pad, self.term_ids[rows], self.tfs[rows]
         )
-        _device_col_set(split["tf_head"], rows, cols)
+        device_col_set(split["tf_head"], rows, cols)
         if len(plan["zero_pos"]):
-            _device_row_set(
+            device_row_set(
                 split["post_tfs"], plan["zero_pos"],
                 np.zeros(len(plan["zero_pos"]), np.uint8),
             )
@@ -827,8 +868,8 @@ class IndexStore:
             tfs_pad = np.zeros(hi, np.uint8)
             rows_pad[: min(n_new, hi)] = plan["ov_rows"][:hi]
             tfs_pad[: min(n_new, hi)] = plan["ov_tfs"][:hi]
-            _device_row_set(split["post_rows"], pos, rows_pad[lo:hi])
-            _device_row_set(split["post_tfs"], pos, tfs_pad[lo:hi])
+            device_row_set(split["post_rows"], pos, rows_pad[lo:hi])
+            device_row_set(split["post_tfs"], pos, tfs_pad[lo:hi])
         split["ov_prev"] = (plan["ov_rows"], plan["ov_tfs"])
         split["ov_offsets"] = (
             plan["ov_offsets"] if int(plan["ov_offsets"][-1]) else None
@@ -848,6 +889,7 @@ class IndexStore:
             ov_offsets=split["ov_offsets"],
             ov_start=split["p_base"],
         )
+        qa = {k: qa[k] for k in STEP_COLUMNS}
         qa["q_tids"] = q_terms
         qa["q_counts"] = q_counts
         return {

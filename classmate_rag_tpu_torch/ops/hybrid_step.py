@@ -72,34 +72,40 @@ def _dense_branch(emb, mask_bias, q_vecs, *, k_vector, pool, use_mmr,
         emb, q_vecs.float().contiguous(), mask_bias, sel
     )
     d_rows = d_rows.long()
+    src = emb if emb16 is None else emb16
+    cand = (src[torch.clamp(d_rows, min=0)]
+            if emb16 is not None or use_mmr else None)
+    return dense_pool_order(
+        q_vecs, d_rows, d_vals, cand, pool=pool_eff, k_vector=k_vector,
+        use_mmr=use_mmr, mmr_lambda=mmr_lambda, rescore=emb16 is not None,
+    )
 
-    if emb16 is not None:
-        cand16 = emb16[torch.clamp(d_rows, min=0)]          # [B, sel, d]
-        d_rows, d_vals, order = rescore_candidates(
-            q_vecs, cand16, d_rows, d_vals
-        )
-        d_rows = d_rows[:, :pool_eff]
-        d_vals = d_vals[:, :pool_eff]
-        cand_pool = cand16.float().gather(
-            1, order[:, :pool_eff, None].expand(-1, -1, cand16.shape[2])
-        )
-    else:
-        cand_pool = None
-    d_alive = d_vals > NEG_INF / 2
 
+def dense_pool_order(q_vecs, rows, vals, cand, *, pool, k_vector, use_mmr,
+                     mmr_lambda, rescore):
+    """The dense branch after selection: ``rows``/``vals`` [B, R] in
+    (score desc, row asc) order with their candidate embeddings ``cand``
+    [B, R, d] (None when neither rescore nor MMR reads them). With
+    ``rescore`` (``cand`` the f16 master) the R rows are re-scored and
+    cut to the first ``pool``; then MMR or the first ``k_vector`` →
+    (vec_rows, vec_dist) [B, kv]. Dead entries (vals <= NEG_INF/2) never
+    come out, whatever row id they carry."""
+    if rescore:
+        rows, vals, order = rescore_candidates(q_vecs, cand, rows, vals)
+        rows, vals = rows[:, :pool], vals[:, :pool]
+        cand = cand.gather(
+            1, order[:, :pool, None].expand(-1, -1, cand.shape[2])
+        )
+    alive = vals > NEG_INF / 2
     if use_mmr:
-        if cand_pool is None:
-            cand_pool = emb[torch.clamp(d_rows, min=0)].float()
-        orders = mmr_order(q_vecs, cand_pool, d_alive, k_vector, mmr_lambda)
+        orders = mmr_order(q_vecs, cand.float(), alive, k_vector, mmr_lambda)
         picked_ok = orders >= 0
         safe = torch.clamp(orders, min=0)
-        vec_rows = torch.where(picked_ok, d_rows.gather(1, safe), -1)
-        vec_vals = torch.where(picked_ok, d_vals.gather(1, safe), NEG_INF)
+        vec_rows = torch.where(picked_ok, rows.gather(1, safe), -1)
+        vec_vals = torch.where(picked_ok, vals.gather(1, safe), NEG_INF)
     else:
-        vec_rows = torch.where(
-            d_alive[:, :k_vector], d_rows[:, :k_vector], -1
-        )
-        vec_vals = d_vals[:, :k_vector]
+        vec_rows = torch.where(alive[:, :k_vector], rows[:, :k_vector], -1)
+        vec_vals = vals[:, :k_vector]
     return vec_rows, 1.0 - vec_vals
 
 
@@ -131,32 +137,43 @@ def bm25_rescore_pool(rows, term_ids, tfs, doc_len, avgdl, idf,
     return (w[:, None, :] * sat).sum(-1)
 
 
-def _bm25_postprocess(bm_scores, mask_bias, has_terms, *, k_bm25,
-                      select="exact", rescore_ctx=None):
-    """Top-k over BM25 scores with padding/empty-query handling.
+def bm25_select(biased, k_bm25, *, select="exact", rescore_ctx=None):
+    """(vals, rows) [B, k] of the best rows of ``biased`` [B, N] (BM25
+    scores plus the mask bias), (value desc, row asc); k = min(k_bm25, N).
 
     ``select="approx"`` takes a wider pool (max(64, 4k) rows) and, with
-    ``rescore_ctx``, re-scores it exactly before the final (value desc,
-    row asc) order — BM25 scores tie often, and boundary ties must
-    resolve exactly as the exact route does."""
-    biased = bm_scores + mask_bias[None, :]
-    n = bm_scores.shape[1]
+    ``rescore_ctx``, re-scores it exactly before the final order: BM25
+    scores tie often, and boundary ties must resolve exactly as the exact
+    route does."""
+    n = biased.shape[1]
     k_bm_eff = min(k_bm25, n)
-    if select == "approx":
-        k_sel = min(max(64, 4 * k_bm_eff), n)
-        p_vals, p_rows = stable_topk(biased, k_sel)
-        if rescore_ctx is not None:
-            exact = bm25_rescore_pool(p_rows, *rescore_ctx)
-            p_vals = torch.where(p_vals > NEG_INF / 2, exact, NEG_INF)
-        order = lexsort_desc(p_vals, p_rows)[:, :k_bm_eff]
-        b_vals = p_vals.gather(1, order)
-        b_rows = p_rows.gather(1, order)
-    else:
-        b_vals, b_rows = stable_topk(biased, k_bm_eff)
+    if select != "approx":
+        return stable_topk(biased, k_bm_eff)
+    k_sel = min(max(64, 4 * k_bm_eff), n)
+    p_vals, p_rows = stable_topk(biased, k_sel)
+    if rescore_ctx is not None:
+        exact = bm25_rescore_pool(p_rows, *rescore_ctx)
+        p_vals = torch.where(p_vals > NEG_INF / 2, exact, NEG_INF)
+    order = lexsort_desc(p_vals, p_rows)[:, :k_bm_eff]
+    return p_vals.gather(1, order), p_rows.gather(1, order)
+
+
+def bm25_finish(b_vals, b_rows, has_terms):
+    """(bm_rows, bm_vals): -1 / 0 where no live row was found or the
+    query had no vocabulary term."""
     b_rows = torch.where(b_vals > NEG_INF / 2, b_rows, -1)
     b_vals = torch.where(b_rows >= 0, b_vals, 0.0)
-    b_rows = torch.where(has_terms, b_rows, -1)
-    return b_rows, b_vals
+    return torch.where(has_terms, b_rows, -1), b_vals
+
+
+def _bm25_postprocess(bm_scores, mask_bias, has_terms, *, k_bm25,
+                      select="exact", rescore_ctx=None):
+    """Top-k over BM25 scores with padding/empty-query handling."""
+    return bm25_finish(
+        *bm25_select(bm_scores + mask_bias[None, :], k_bm25, select=select,
+                     rescore_ctx=rescore_ctx),
+        has_terms,
+    )
 
 
 def _fuse(vec_rows, vec_dist, bm_rows, bm_vals, *, weight_vector,

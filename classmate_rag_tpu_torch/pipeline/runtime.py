@@ -6,11 +6,9 @@ IndexStore, the caching embedder, the retriever, the generation runner
 and the lazy routing singletons (classifier, router, sticky loader);
 repeated queries reuse the resident tensors and the runner's weights.
 ``get_runtime(device=None)`` builds it on CUDA; the tests pass
-``device="cpu"``.
-
-Not ported yet, and raising instead of taking another route: the
-multi-card serving engine (``N_SHARDS`` > 1 with more than one card;
-ROADMAP §1, multi-GPU).
+``device="cpu"``. On a host with more than one card (``N_SHARDS`` 0 =
+one shard a card) it also builds the corpus-sharded serving engine
+(``parallel.ShardedHybridIndex``), and the retriever asks through it.
 """
 
 from __future__ import annotations
@@ -33,6 +31,7 @@ from classmate_rag_tpu_torch.embeddings import get_caching_embedder
 from classmate_rag_tpu_torch.generation.runner import get_runner
 from classmate_rag_tpu_torch.index.catalog import Catalog
 from classmate_rag_tpu_torch.index.store import IndexStore
+from classmate_rag_tpu_torch.parallel.mesh import corpus_mesh, local_devices
 from classmate_rag_tpu_torch.retrieval.hybrid import HybridRetriever
 
 # The JAX package's serving-scale threshold for the background warm-up.
@@ -46,7 +45,8 @@ class Runtime:
     store: IndexStore
     embedder: Any
     retriever: HybridRetriever
-    # The JAX package's multi-chip serving engine; never set here.
+    # The corpus-sharded serving engine (parallel.ShardedHybridIndex)
+    # when the host has more than one card, else None.
     sharded: Any = None
     # Cold-start decomposition (seconds) filled by get_runtime:
     # {"catalog_s", "store_s", "sharded_s"} — the catalog scan or sidecar
@@ -139,21 +139,42 @@ class Runtime:
         return out
 
 
-def _check_shards(cfg: Config, device: torch.device) -> None:
-    """``N_SHARDS`` 0 = one shard per local card, 1 = one, n = n. Where
-    that means more than one card, the JAX package would build its
-    multi-chip engine; that is not ported."""
+def _pick_n_shards(cfg: Config, slab_rows: int,
+                   device: torch.device) -> int:
+    """Shard count for the product path: ``N_SHARDS`` 0 = one per local
+    card, 1 = one device, n > 1 = n. Clamped to the local cards of
+    ``device``'s kind and walked down to a divisor of ``slab_rows`` (the
+    store's capacity is always a slab multiple, so a divisor of the slab
+    divides every capacity)."""
     n = cfg.n_shards
-    if n == 1 or device.type != "cuda":
-        return
-    avail = torch.cuda.device_count()
+    if n == 1:
+        return 1
+    avail = len(local_devices(device))
     n = avail if n <= 0 else min(n, avail)
-    while n > 1 and cfg.dense_slab_rows % n:
+    while n > 1 and slab_rows % n:
         n -= 1
-    if n > 1:
-        raise NotImplementedError(
-            f"N_SHARDS={cfg.n_shards} asks for {n} cards; the multi-card "
-            "serving engine is not ported yet (ROADMAP §1, multi-GPU)")
+    return n
+
+
+def build_sharded_index(cfg: Config, store: IndexStore):
+    """The corpus-sharded serving engine over the store's local cards, or
+    None when the product path runs on one device."""
+    n_sh = _pick_n_shards(cfg, store.slab_rows, store.device)
+    if n_sh < 2:
+        return None
+    from classmate_rag_tpu_torch.parallel.serving import ShardedHybridIndex
+
+    return ShardedHybridIndex(
+        store, corpus_mesh(n_sh, local_devices(store.device)),
+        k_vector=cfg.k_vector,
+        k_bm25=cfg.k_bm25,
+        rrf_k=cfg.rrf_k,
+        weight_vector=cfg.weight_vector,
+        weight_bm25=cfg.weight_bm25,
+        use_mmr=cfg.use_mmr,
+        mmr_lambda=cfg.mmr_lambda,
+        pool=cfg.mmr_max_pool,
+    )
 
 
 _RUNTIME: Optional[Runtime] = None
@@ -165,7 +186,6 @@ def get_runtime(reload: bool = False, device: DeviceLike = None) -> Runtime:
         return _RUNTIME
     dev = resolve_device(device)
     cfg = load_config(reload=reload)
-    _check_shards(cfg, dev)
     embedder = get_caching_embedder(embedding_config_of(cfg), device=dev)
     t0 = time.perf_counter()
     catalog = Catalog.load_or_create(cfg.bm25_dir)
@@ -182,6 +202,8 @@ def get_runtime(reload: bool = False, device: DeviceLike = None) -> Runtime:
         device=dev,
     )
     t2 = time.perf_counter()
+    sharded = build_sharded_index(cfg, store)
+    t3 = time.perf_counter()
     # Feature-space guard: vectors persisted under a different embedder
     # silently degrade dense retrieval.
     current_model = getattr(embedder, "model_name", None)
@@ -209,7 +231,7 @@ def get_runtime(reload: bool = False, device: DeviceLike = None) -> Runtime:
     timings = {
         "catalog_s": round(t1 - t0, 3),
         "store_s": round(t2 - t1, 3),
-        "sharded_s": 0.0,
+        "sharded_s": round(t3 - t2, 3),
     }
     retriever = HybridRetriever(
         store=store,
@@ -224,10 +246,11 @@ def get_runtime(reload: bool = False, device: DeviceLike = None) -> Runtime:
         mmr_lambda=cfg.mmr_lambda,
         mmr_max_pool=cfg.mmr_max_pool,
         use_device_encode=cfg.device_query_encode,
+        sharded=sharded,
     )
     _RUNTIME = Runtime(
         cfg=cfg, catalog=catalog, store=store,
-        embedder=embedder, retriever=retriever,
+        embedder=embedder, retriever=retriever, sharded=sharded,
         load_timings=timings,
     )
     mode = (cfg.runtime_precompile or "auto").lower()

@@ -56,4 +56,7 @@ def index_stats(runtime: Optional[Runtime] = None) -> Dict[str, object]:
         },
         "metrics": metrics.snapshot(),
     }
+    if rt.sharded is not None:
+        # Shard occupancy of the corpus-sharded serving engine.
+        out["sharded"] = rt.sharded.stats()
     return out

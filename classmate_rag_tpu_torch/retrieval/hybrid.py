@@ -53,8 +53,8 @@ class HybridRetriever:
     # Device-resident encode → retrieve handoff; False forces the
     # (cached) host encode path.
     use_device_encode: bool = True
-    # The JAX package's multi-chip serving engine. Not ported: a retriever
-    # with one set raises (ROADMAP §1, multi-GPU).
+    # The corpus-sharded serving engine (parallel.ShardedHybridIndex):
+    # when set, the fused path asks through it instead of the store.
     sharded: Any = None
 
     def _dense_branch(
@@ -140,10 +140,6 @@ class HybridRetriever:
         top_k: int = 8,
         hybrid: bool = True,
     ) -> List[List[Dict[str, Any]]]:
-        if self.sharded is not None:
-            raise NotImplementedError(
-                "the multi-chip serving engine is not ported yet "
-                "(ROADMAP §1, multi-GPU)")
         where = dict(filters) if filters else None
         live = [
             (i, q) for i, q in enumerate(questions)
@@ -185,8 +181,7 @@ class HybridRetriever:
         # Dense-only widens k_vector to top_k; empty term lists disable
         # the bm25 branch via has_terms.
         kv = self.k_vector if hybrid else max(top_k, self.k_vector)
-        result = self.store.hybrid_topk_batch(
-            q_vecs, q_terms, where,
+        knobs = dict(
             k_vector=kv,
             k_bm25=self.k_bm25,
             top_k=top_k,
@@ -197,6 +192,15 @@ class HybridRetriever:
             weight_vector=self.weight_vector if hybrid else 1.0,
             weight_bm25=self.weight_bm25,
         )
+        if self.sharded is not None:
+            # The engine first drains the store's mutation journal
+            # (O(delta) re-place), so admin mutations are visible.
+            self.sharded.ensure_fresh()
+            result = self.sharded.query_batch(q_vecs, q_terms, where,
+                                              **knobs)
+        else:
+            result = self.store.hybrid_topk_batch(q_vecs, q_terms, where,
+                                                  **knobs)
         rows, fused, vdist, bscore = (t.cpu().numpy() for t in result)
 
         for pos, (i, _q) in enumerate(live):

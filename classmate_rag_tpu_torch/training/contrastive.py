@@ -8,7 +8,7 @@ diagonal as labels, the gradient, and the optimizer of ``optim.py``
 JAX step runs SPMD over a ("data", "model") mesh; this one runs on one
 device (CUDA unless the caller asks for the CPU). A mesh or more than
 one card raises ``NotImplementedError`` until multi-GPU training is
-ported (ROADMAP §1, item 6), and with it ``encoder_param_specs``.
+ported (ROADMAP §1, multi-GPU), and with it ``encoder_param_specs``.
 
 Parameters live in the trainable encoder (``E5Model(trainable=True)``:
 f32 leaves, cast to the compute dtype at each use) and are updated in
@@ -75,12 +75,12 @@ def train_device(device: DeviceLike) -> torch.device:
         if device > 1:
             raise NotImplementedError(
                 f"training on {device} cards is not ported yet (ROADMAP "
-                f"§1, item 6, multi-GPU); train on one")
+                f"§1, multi-GPU); train on one")
         device = None
     elif device is not None and not isinstance(device, (str, torch.device)):
         raise NotImplementedError(
             f"a device mesh ({type(device).__name__}) is not ported yet "
-            f"(ROADMAP §1, item 6, multi-GPU); pass one device")
+            f"(ROADMAP §1, multi-GPU); pass one device")
     return resolve_device(device)
 
 

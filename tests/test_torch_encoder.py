@@ -290,12 +290,45 @@ def test_data_parallel_clamp(monkeypatch, dp, cards, want):
 
 
 def test_more_than_one_card_raises(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    monkeypatch.setattr(tenc, "resolve_device",
-                        lambda _d: torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        tenc.E5Encoder(model_name=NAME, config=tm.EncoderConfig.small_test(),
-                       data_parallel=0)
+    """More than one card no longer raises: ``data_parallel=0`` puts a
+    replica on each local device, the count clamped to a power of two
+    (3 cards → 2 replicas)."""
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(tenc, "local_devices", lambda _d: [cpu] * 3)
+    enc = tenc.E5Encoder(model_name=NAME, config=tm.EncoderConfig.small_test(),
+                         data_parallel=0, device="cpu")
+    assert enc._dp == 2 and [d for d, _m in enc._replicas] == [cpu] * 2
+    assert enc._replicas[0][1] is enc.model
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_data_parallel_encode_bit_equal(encoders, fused):
+    """Replicas on [cpu] * 2 (two blocks of every padded batch) give the
+    single-device vectors bit for bit, and agree with the JAX package's
+    data-parallel encoder on its virtual devices as its single-device
+    one does."""
+    j, t = encoders
+    cfg = _tcfg(fused_epilogue=fused, flash_min_seq=128)
+    one = tenc.E5Encoder(model_name=NAME, config=cfg, device="cpu")
+    dp = tenc.E5Encoder(model_name=NAME, config=cfg, device="cpu",
+                        data_parallel=2, devices=["cpu", "cpu"])
+    assert dp._dp == 2 and len(dp._replicas) == 2
+    assert dp._replicas[1][1] is not dp.model
+    texts = TEXTS + [f"passage number {i} on derivatives" for i in range(70)]
+    for mode in ("queries", "passages"):
+        got = getattr(dp, f"encode_{mode}")(texts)
+        assert np.array_equal(got, getattr(one, f"encode_{mode}")(texts))
+    assert np.array_equal(dp.encode_queries_device(texts).numpy(),
+                          one.encode_queries_device(texts).numpy())
+    assert dp.last_flops == one.last_flops
+    jdp = jenc.E5Encoder(model_name=NAME, config=jm.EncoderConfig.small_test(),
+                         data_parallel=2)
+    assert jdp._dp == 2
+    if not fused:
+        want = jdp.encode_passages(texts)
+        got = dp.encode_passages(texts)
+        assert (got * want).sum(axis=1).min() >= COS_MIN
+        assert np.abs(got - want).max() <= ABS_MAX
 
 
 @pytest.mark.parametrize("b,t", [(8, 32), (32, 512), (512, 32)])

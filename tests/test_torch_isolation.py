@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither JAX (nor optax or orbax) nor
-the JAX package, nor the JAX package's command line (``cli``), and a
-default-device call without CUDA raises instead of running on the CPU.
-Both checks run in a fresh interpreter."""
+the JAX package, nor the JAX package's command line (``cli``), with every
+module of it imported and its paths driven (the sharded engine of
+``parallel/`` too), and a default-device call without CUDA raises instead
+of running on the CPU. Both checks run in a fresh interpreter."""
 
 import os
 import subprocess
@@ -54,6 +55,11 @@ def test_port_imports_and_queries_without_jax():
                  [{"course": "x"}] * 50)
         out = s.hybrid_topk_batch(emb[:2], [["alpha"], []])
         assert (out.rows >= 0).all(), out.rows
+        # The corpus-sharded engine, on two logical shards of the CPU.
+        from classmate_rag_tpu_torch.parallel import ShardedHybridIndex
+        sh = ShardedHybridIndex(s, ["cpu", "cpu"])
+        assert (sh.query_batch(emb[:2], [["alpha"], []]).rows
+                == out.rows).all()
         # The product path: runtime, ingest, ask, persist, server.
         import os, pathlib, tempfile
         root = pathlib.Path(tempfile.mkdtemp())
@@ -149,7 +155,9 @@ def test_default_device_without_cuda_raises():
         from classmate_rag_tpu_torch.embeddings.model import EncoderConfig
         from classmate_rag_tpu_torch.training import make_train_step
         from classmate_rag_tpu_torch.cli.main import main as cli_main
+        from classmate_rag_tpu_torch.parallel import corpus_mesh
         for call in (lambda: IndexStore(8), lambda: resolve_device(None),
+                     lambda: corpus_mesh(),
                      lambda: cli_main(["stats"]),
                      lambda: make_train_step(EncoderConfig.small_test()),
                      lambda: resolve_device("cuda"),

@@ -9,8 +9,8 @@ the retrieved ids, with and without filters and neighbour expansion.
 Scores agree within atol/rtol 1e-5. The port's runtime runs on the CPU
 (``device="cpu"``). The decoder backends answer through the port's
 DecodeRunner; with routing on, both route every ask through their sticky
-loaders. Where the JAX package would take a path the port has not
-ported (more than one card), the port raises NotImplementedError.
+loaders. The shard count of a host with more cards is the JAX
+package's (tests/test_torch_runtime_sharded.py drives the engine).
 """
 
 import dataclasses
@@ -368,7 +368,8 @@ def test_routed_ask_and_more_cards_raise(runtimes, monkeypatch):
         ask_question,
         ask_question_batch,
     )
-    from classmate_rag_tpu_torch.pipeline.runtime import _check_shards
+    from classmate_rag_tpu.pipeline.runtime import _pick_n_shards as jpick
+    from classmate_rag_tpu_torch.pipeline.runtime import _pick_n_shards
 
     jrt, trt, _ = runtimes
     for rt in (jrt, trt):
@@ -392,11 +393,14 @@ def test_routed_ask_and_more_cards_raise(runtimes, monkeypatch):
     for x, y in zip(a, b):
         _same_result(x, y)
     assert trt._runner is None
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    for n, raises in ((0, True), (2, True), (1, False)):
-        cfg = dataclasses.replace(trt.cfg, n_shards=n)
-        if raises:
-            with pytest.raises(NotImplementedError, match="multi-GPU"):
-                _check_shards(cfg, torch.device("cuda"))
-        else:
-            _check_shards(cfg, torch.device("cuda"))
+    # More cards no longer raise: the shard count is the JAX package's
+    # (8 cards as its 8 virtual devices; walked down to a slab divisor).
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    for n in (0, 1, 2, 3, 12):
+        for slab in (4096, 12):
+            assert _pick_n_shards(
+                dataclasses.replace(trt.cfg, n_shards=n), slab,
+                torch.device("cuda"),
+            ) == jpick(dataclasses.replace(jrt.cfg, n_shards=n), slab)
+    assert _pick_n_shards(dataclasses.replace(trt.cfg, n_shards=0), 4096,
+                          torch.device("cpu")) == 1

@@ -132,9 +132,9 @@ def test_eval_step_matches_jax():
 
 def test_more_than_one_device_raises():
     _, tcfg = _configs("f32")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §1, multi-GPU"):
         t_make_train(tcfg, 2)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §1, multi-GPU"):
         t_make_eval(tcfg, _mesh())
 
 
