@@ -8,8 +8,9 @@ name) that ingests passages and encodes the questions it answers, the
 product path, the answer generator (Llama-3.1-8B at full width; it
 runs no hand-written kernel), the encoder's fine-tuning with the
 flash attention backward kernels, the routed ask with the index's
-admin verbs through the port's command line, and the corpus-sharded
-serving engine with data-parallel encode.
+admin verbs through the port's command line, the corpus-sharded
+serving engine with data-parallel encode, and dp×tp training and
+decode over ("data", "model") meshes of logical ranks on the one card.
 
     python3 chip_smoke.py            # on a machine with one NVIDIA GPU
     python3 chip_smoke.py --product-child DIR   # phase 8's child alone
@@ -142,6 +143,33 @@ Phases, one JSON line each; any failure exits non-zero with no result:
               encodes 1,024 passages (launch counts 12/24/12 a forward a
               replica; cosine >= 0.99999 to the single-device encode);
               placed bytes and peak memory.
+13. mesh      dp×tp over ("data", "model") meshes whose ranks are
+              logical devices, all on cuda:0 (the code that puts one
+              rank on each card; the machine has one). Decode, in phase
+              9's child after its W8A8 part, from its bf16 weights:
+              Llama-3.1-8B at full depth on auto_mesh_for over 4 ranks,
+              (1, 4), then at 2 layers on (2, 2); phase 9's 8 prompts,
+              32 greedy tokens; the first step's logits against the
+              single-device forward (row cosine >= 0.999) and against an
+              f32 evaluation of the same weights (within 1.25x of the
+              single device's distance; see MESH_COS_MIN), the tokens
+              equal to the single-device decode's up to a near-tie
+              (MESH_NEAR_TIE), ms a step against the single device, each
+              rank's weight bytes.
+              Train, after phase 10: E5-base at full width
+              (flash_min_seq 128) on training_mesh over 8 ranks, (2, 4),
+              5 steps on phase 10's first batches against the
+              single-device step from the same initial parameters (loss
+              rel. 1e-3 each step; the first step's gradient leaves at
+              cosine >= 0.999, k_b reported), launch counts around one
+              step (192 flash_attn, 192 + 192 backward: 24 each a
+              logical device), step ms and peak memory against one
+              device, and the mesh's checkpoint restored on one device
+              bit-equal to the gathered parameters. The 'kernels' line,
+              part 'train', also holds the flash forward and both
+              backward kernels at 3 and 6 heads (a rank's share of
+              E5-base's 12 at tp 4 and 2), with padded rows, against the
+              plain version (phase 2's and phase 10's bars).
 
 Then the kernels line ({"kernels": [...]}), the nvidia-smi line, and
 last {"ok": true, "device": {...}}. A kernel's ``ms`` (and the plain
@@ -1916,6 +1944,30 @@ DEC_CPU_COS_MIN = 0.9999   # card vs CPU prefill logit rows
 # the largest logit difference, and at most 5 % of the rows.
 DEC_CPU_ARGMAX_MIN = 0.95
 RUNNER_NEW = 64            # LLM_MAX_TOKENS of the runner and product parts
+# Phase 13's decode: 4 logical ranks (auto_mesh_for gives (1, 4) for
+# Llama-3.1-8B's 8 KV heads) at full depth, (2, 2) at 2 layers.
+MESH_NEW = 32
+MESH_DECODE_RANKS = 4
+MESH_DECODE_LAYERS_2x2 = 2
+# First-step logit rows. Both bf16 paths stand ~1e-3 (1 - cosine) from
+# an f32 evaluation of the same weights at 32 layers (bf16 roundings of
+# every product's operands), and apart from each other by ~2e-4 there:
+# the mesh's partial sums add in another order, and each bf16 rounding
+# a changed ulp crosses carries on through the layers. So the mesh is
+# held to be as close to the f32 evaluation as one device is (1 - cos
+# within MESH_REF_RATIO of it, plus MESH_REF_FLOOR at shallow depth
+# where both are ~1e-6), and to one device at MESH_COS_MIN.
+MESH_COS_MIN = 0.999
+MESH_REF_RATIO = 1.25
+MESH_REF_FLOOR = 1e-5
+# Mesh vs one device, greedy: a row may part only where the tokens the
+# two took score within this of the best in the single device's logits
+# (tests/test_torch_decode_runner.py's NEAR_TIE), or within twice the
+# largest first-step logit difference of the two paths (phase 9's
+# card-vs-CPU rule), whichever is larger: the ranks' partial sums add in
+# another order, and bf16 roundings of the residual stream carry that
+# through 32 layers.
+MESH_NEAR_TIE = 2e-2
 # A batch of 8 and a batch of 1 run cuBLAS kernels chosen by row count,
 # so their sums differ in order: a greedy step may differ between them
 # only where the top two logits are within this.
@@ -1977,12 +2029,13 @@ def prefill_mask(lens, width, max_seq, dev):
     return pos.clamp_min(0), torch.where(ok, 0.0, NEG_INF), pad
 
 
-def timed_generate(D, gen, params, ids, lens, eos):
+def timed_generate(D, gen, params, ids, lens, eos, forward="forward"):
     """Run ``gen`` once with a CUDA event recorded after every forward it
-    makes (the prefill, then one a step): prefill ms and each step's ms
-    on the device's clock (host gaps included), and the wall time."""
+    makes (the prefill, then one a step; ``forward`` names the function
+    of module ``D`` it calls): prefill ms and each step's ms on the
+    device's clock (host gaps included), and the wall time."""
     marks = []
-    real = D.forward
+    real = getattr(D, forward)
 
     def marked(*a, **kw):
         out = real(*a, **kw)
@@ -1993,7 +2046,7 @@ def timed_generate(D, gen, params, ids, lens, eos):
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    D.forward = marked
+    setattr(D, forward, marked)
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2003,7 +2056,7 @@ def timed_generate(D, gen, params, ids, lens, eos):
         end.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
-        D.forward = real
+        setattr(D, forward, real)
     steps = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
     return toks.cpu(), {"prefill_ms": start.elapsed_time(marks[0]),
                         "step_ms": steps, "wall_ms": wall_ms}
@@ -2171,6 +2224,7 @@ def decode_full_width(D, cfg, dev, card: str) -> None:
         "top_kernels": prof["top_kernels"][:6],
         "tokens_row0": toks[0, :16].tolist()})
 
+
     # ---- 2. W8A8: the same weights quantized on the card.
     t0 = time.perf_counter()
     q8 = D.quantize_decoder_params(params, cfg)
@@ -2212,6 +2266,10 @@ def decode_full_width(D, cfg, dev, card: str) -> None:
     check(math.isfinite(agree["cos_min"]) and agree["cos_min"] > 0,
           "decode w8a8: logits not finite")
     del q8
+    torch.cuda.empty_cache()
+
+    # ---- phase 13: dp×tp decode from the same bf16 weights.
+    decode_mesh(D, cfg, params, ids, lens, dev, card)
 
     # ---- 3. the card against the CPU, full width at 2 layers.
     cfg2 = dataclasses.replace(cfg, layers=DEC_CPU_LAYERS)
@@ -2247,25 +2305,152 @@ def decode_full_width(D, cfg, dev, card: str) -> None:
           f"decode card vs CPU: argmax {agree}")
 
 
-def near_tie_margin(runner, prompt_ids, prefix) -> float:
-    """Top-1 minus top-2 logit after ``prompt_ids + prefix``, computed on
-    the runner's card as one sequence."""
+def last_logits(params, cfg, seq, dev) -> torch.Tensor:
+    """The logits [V] after ``seq``, one sequence on ``dev``."""
     from classmate_rag_tpu_torch.models import decoder as D
     from classmate_rag_tpu_torch.utils.numerics import NEG_INF
 
-    seq = list(prompt_ids) + list(prefix)
     n = len(seq)
-    dev = runner.device
     pos = torch.arange(n, device=dev)[None]
     mask = torch.where(torch.arange(n, device=dev)[None, None]
                        <= pos[:, :, None], 0.0, NEG_INF)
     with torch.inference_mode():
-        logits, _ = D.forward(runner.params, torch.tensor([seq], device=dev),
-                              pos, D.empty_cache(runner.config, 1, n,
-                                                 device=dev),
-                              0, runner.config, attn_mask=mask)
-    top = logits[0, -1].topk(2).values
+        logits, _ = D.forward(params, torch.tensor([seq], device=dev), pos,
+                              D.empty_cache(cfg, 1, n, device=dev), 0, cfg,
+                              attn_mask=mask)
+    return logits[0, -1]
+
+
+def near_tie_margin(runner, prompt_ids, prefix) -> float:
+    """Top-1 minus top-2 logit after ``prompt_ids + prefix``, computed on
+    the runner's card as one sequence."""
+    top = last_logits(runner.params, runner.config,
+                      list(prompt_ids) + list(prefix),
+                      runner.device).topk(2).values
     return float(top[0] - top[1])
+
+
+def agree_until_near_tie(params, cfg, dev, ids, lens, want, got,
+                         bar: float) -> dict:
+    """Greedy rows ``got`` against the reference's ``want`` ([B, N]):
+    each row equal, or equal up to a step where both tokens taken score
+    within ``bar`` of the best one in the reference's logits there (one
+    sequence, teacher-forced): a near-tie, the rule of
+    tests/test_torch_decode_runner.py."""
+    want, got = want.cpu(), got.cpu()
+    width = ids.shape[1]
+    out = {"rows_equal": 0, "first_difference": [], "gaps": [],
+           "bar": bar, "tokens_equal": float((want == got).float().mean())}
+    for r in range(want.shape[0]):
+        diff = (want[r] != got[r]).nonzero()
+        if not len(diff):
+            out["rows_equal"] += 1
+            continue
+        k = int(diff[0])
+        logits = last_logits(params, cfg, list(ids[r, width - lens[r]:])
+                             + want[r, :k].tolist(), dev)
+        best = logits.max()
+        gaps = [float(best - logits[int(x[r, k])]) for x in (want, got)]
+        out["first_difference"].append(k)
+        out["gaps"].append(gaps)
+        check(max(gaps) < bar, f"row {r} differs at step {k} past a "
+              f"near-tie: the tokens taken score {gaps} under the best "
+              f"(bar {bar})")
+    return out
+
+
+def f32_last_logits(D, cfg, params, ids, pos, mask, dev) -> torch.Tensor:
+    """The last position's logits [B, V] of ``decoder.forward`` in f32
+    (each layer's weights upcast in turn; the KV cache stays bf16, as
+    the decoder keeps it)."""
+    c32 = dataclasses.replace(cfg, compute_dtype=torch.float32, layers=1)
+    cos, sin = D._rope_tables(pos, cfg.head_dim, cfg.rope_theta)
+    k, v = D.empty_cache(c32, ids.shape[0], mask.shape[-1], device=dev)
+    x = D._embed(params["tok_emb"], ids)
+    for i in range(cfg.layers):
+        lp = {key: w[i].float() for key, w in params["layers"].items()}
+        x = D._layer(lp, x, cos, sin, k[0], v[0], 0, mask, c32)
+    x = D._rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
+    return D._mm(x, params["lm_head"].float(), torch.float32)
+
+
+def decode_mesh(D, cfg, params, ids, lens, dev, card: str) -> None:
+    """Phase 13, decode: dp×tp decode of phase 9's prompts on logical
+    ranks of the one card against the single-device decode, at full
+    depth on ``auto_mesh_for`` over 4 ranks, then at 2 layers on (2, 2)."""
+    from classmate_rag_tpu_torch.parallel import tp_decode as TTP
+    from classmate_rag_tpu_torch.parallel.mesh import DeviceMesh
+
+    t_phase = time.perf_counter()
+    B, P, S, N = DEC_BATCH, DEC_PROMPT, DEC_MAX_SEQ, MESH_NEW
+    pos, mask, _pad = prefill_mask(lens, P, S, dev)
+    prefix = torch.as_tensor(ids, device=dev)
+    parts = []
+    for c, mesh in (
+            (cfg, TTP.auto_mesh_for(cfg, [dev] * MESH_DECODE_RANKS)),
+            (dataclasses.replace(cfg, layers=MESH_DECODE_LAYERS_2x2),
+             DeviceMesh([[dev] * 2] * 2))):
+        tree = first_layers(params, c.layers)
+        t0 = time.perf_counter()
+        shards = TTP.shard_decoder_params(tree, c, mesh)
+        torch.cuda.synchronize()
+        shard_s = time.perf_counter() - t0
+        with torch.inference_mode():
+            cache = D.empty_cache(c, B, S, device=dev)
+            one = D.forward(tree, prefix, pos, cache, 0, c,
+                            attn_mask=mask)[0][:, -1].clone()
+            del cache
+            caches = TTP.empty_tp_cache(c, mesh, B, S)
+            many = TTP.tp_forward(shards, prefix, pos, caches, 0, c, mesh,
+                                  mask)[:, -1].clone()
+            del caches
+            ref = f32_last_logits(D, c, tree, prefix, pos, mask, dev)
+            agree = rows_agree(many, one)
+            one_ref, many_ref = rows_agree(one, ref), rows_agree(many, ref)
+            del one, many, ref
+            gen1 = D.make_generate_fn(c, S, N)
+            gen = TTP.make_tp_generate_fn(c, mesh, S, N)
+            gen(shards, ids, lens, 0, 0.0, 0.95, DEC_EOS)      # warm-up
+            want, t1 = timed_generate(D, gen1, tree, ids, lens, DEC_EOS)
+            got, tm = timed_generate(TTP, gen, shards, ids, lens, DEC_EOS,
+                                     forward="tp_forward")
+        tokens = agree_until_near_tie(
+            tree, c, dev, ids, lens, want, got,
+            max(MESH_NEAR_TIE, 2 * agree["max_abs_diff"]))
+        check(agree["cos_min"] >= MESH_COS_MIN,
+              f"mesh decode {mesh.shape}: first-step logits cosine "
+              f"{agree['cos_min']} to one device")
+        check(1 - many_ref["cos_min"] <= MESH_REF_RATIO
+              * (1 - one_ref["cos_min"]) + MESH_REF_FLOOR,
+              f"mesh decode {mesh.shape}: {many_ref} from the f32 "
+              f"evaluation, one device {one_ref}")
+        whole = D.quantized_param_bytes(tree)
+        first = D.quantized_param_bytes(
+            {k: tree[k] for k in TTP.FIRST_RANK_KEYS})
+        parts.append({
+            "mesh": mesh.shape, "layers": c.layers, "shard_s": shard_s,
+            "first_step_logits": agree, "f32_vs_mesh": many_ref,
+            "f32_vs_one_device": one_ref, "tokens": tokens,
+            "step_ms_median": statistics.median(tm["step_ms"]),
+            "single_step_ms_median": statistics.median(t1["step_ms"]),
+            "prefill_ms": tm["prefill_ms"],
+            "single_prefill_ms": t1["prefill_ms"],
+            # Each rank's bytes; the first of a row also holds the token
+            # embedding and the final norm (the rest is split).
+            "rank_weight_bytes": TTP.rank_param_bytes(shards),
+            "whole_weight_bytes": whole,
+            "first_rank_only_bytes": first,
+            "split_bytes_per_rank_ideal": (whole - first)
+            / mesh.shape["model"]})
+        del shards
+        torch.cuda.empty_cache()
+    emit({"phase": "mesh", "part": "decode", "card": card,
+          "ranks": "logical devices, all on cuda:0 (the machine's one card)",
+          "model": "llama3_8b", "batch": B, "prompt_width": P,
+          "max_new": N, "parts": parts, "cos_bar": MESH_COS_MIN,
+          "f32_ratio_bar": MESH_REF_RATIO, "near_tie_bar": MESH_NEAR_TIE,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "seconds": time.perf_counter() - t_phase})
 
 
 def decode_runner(card: str) -> None:
@@ -2388,6 +2573,8 @@ def decode_phase() -> list:
     check({ln.get("part") for ln in lines} >= {
         "bf16", "w8a8", "card_vs_cpu", "runner", "gguf"},
         "decode child: a part is missing")
+    check(any(ln.get("phase") == "mesh" for ln in lines),
+          "decode child: phase 13's decode line is missing")
     emit({"phase": "decode", "part": "child",
           "seconds": time.perf_counter() - t0})
     return lines
@@ -2543,6 +2730,61 @@ def flash_bwd_kernels(tatt, peaks):
         fused_row["worst"] = {n: {"cosine": c, "max_abs_err": e}
                               for n, (c, e) in worst.items()}
     return rows[(32, 128)], [r for pair in rows.values() for r in pair]
+
+
+MESH_HEAD_SHAPES = ((16, 128, 3), (16, 128, 6), (4, 256, 3))
+
+
+def flash_heads(tatt) -> list:
+    """Phase 13's kernel checks: the flash forward and both backward
+    kernels at a tensor-parallel rank's head counts (E5-base's 12 heads
+    over tp 4 and 2), with padded rows, a row of one real key and a row
+    of none, against the plain version: the forward within ATTN_TOL
+    (|v| <= 1, phase 2's bar) and bit-equal to the LSE-writing forward,
+    dq, dk and dv at phase 10's bars."""
+    rng = np.random.default_rng(14)
+    out = []
+    for b, t, nh in MESH_HEAD_SHAPES:
+        x = rng.normal(0, 1.0, (b, t, 3, nh, 64)).astype(np.float32)
+        x[:, :, 2] = rng.uniform(-1, 1, (b, t, nh, 64))
+        qkv = torch.from_numpy(x).to(torch.bfloat16).cuda()
+        qkv.requires_grad_(True)
+        lengths = rng.integers(1, t + 1, b)
+        lengths[:3] = (0, 1, t)
+        mask = torch.from_numpy((np.arange(t)[None, :] < lengths[:, None])
+                                .astype(np.int32)).cuda()
+        dout = torch.from_numpy(rng.normal(0, 1.0, (b, t, nh * 64))
+                                .astype(np.float32)).to(torch.bfloat16).cuda()
+        q, k, v = qkv.unbind(2)
+        qd, kd, vd = (y.detach() for y in (q, k, v))
+        serving = tatt.flash_attn(qd, kd, vd, mask, 0.125)
+        with_lse, _lse = tatt.flash_attn(qd, kd, vd, mask, 0.125,
+                                         with_lse=True)
+        plain = tatt.attention_reference(qd, kd, vd, mask, 0.125)
+        torch.cuda.synchronize()
+        name = f"flash_attn B={b} T={t} heads={nh}"
+        check(torch.equal(serving, with_lse),
+              f"{name}: the LSE forward's output differs from serving")
+        fwd_err = (serving.float() - plain.float()).abs().max().item()
+        check(bool(torch.isfinite(serving.float()).all())
+              and fwd_err <= ATTN_TOL, f"{name}: max |d| {fwd_err}")
+        got = torch.autograd.grad(tatt.flash_attention(q, k, v, mask, 0.125),
+                                  qkv, dout)[0].float()
+        want = torch.autograd.grad(
+            tatt.attention_reference(q, k, v, mask, 0.125), qkv,
+            dout)[0].float()
+        torch.cuda.synchronize()
+        row = {"B": b, "T": t, "heads": nh, "fwd_max_abs_err": fwd_err}
+        for i, g_name in enumerate(("dq", "dk", "dv")):
+            g, w = got[:, :, i], want[:, :, i]
+            c, err = cosine(g, w), (g - w).abs().max().item()
+            check(bool(torch.isfinite(g).all()) and c >= BWD_COS_MIN
+                  and err <= BWD_ERR_REL * w.abs().max().item(),
+                  f"flash_attn_bwd B={b} T={t} heads={nh} {g_name}: cosine "
+                  f"{c}, max |d| {err}")
+            row[g_name] = {"cosine": c, "max_abs_err": err}
+        out.append(row)
+    return out
 
 
 def train_batches(docs, tokenizer):
@@ -2771,16 +3013,147 @@ def train_phase(tatt, docs, counts, peaks, ckpt_dir: Path) -> dict:
     return line
 
 
+MESH_TRAIN_RANKS = 8        # training_mesh over 8 logical ranks: (2, 4)
+MESH_TRAIN_STEPS = 5
+MESH_DEVICE = "cuda:0"      # the device every logical rank is on
+
+
+def mesh_train_phase(docs, counts) -> dict:
+    """Phase 13, train: E5-base at full width on training_mesh over 8
+    logical ranks of the one card, (2, 4), against the single-device
+    step from the same initial parameters on phase 10's first batches;
+    the mesh's checkpoint restored on one device."""
+    from classmate_rag_tpu_torch.embeddings.model import (
+        EncoderConfig,
+        init_params,
+    )
+    from classmate_rag_tpu_torch.embeddings.tokenizer import load_tokenizer
+    from classmate_rag_tpu_torch.parallel.mesh import training_mesh
+    from classmate_rag_tpu_torch.training import checkpoint as C
+    from classmate_rag_tpu_torch.training import contrastive as T
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(EncoderConfig.base(), flash_min_seq=TRAIN_SEQ)
+    tree = init_params(cfg, MODEL_NAME)
+    batches = train_batches(docs, load_tokenizer(
+        None, max_length=TRAIN_SEQ,
+        vocab_size=cfg.vocab_size))[:MESH_TRAIN_STEPS]
+    mesh = training_mesh(devices=[MESH_DEVICE] * MESH_TRAIN_RANKS)
+    check(mesh.shape == {"data": 2, "model": 4}, f"mesh {mesh.shape}")
+    kw = dict(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+              total_steps=TRAIN_STEPS)
+    names = [f"{n[0]}/{n[1]}[{i}]" if n[0] == "layers" else n[0]
+             for n in T.param_names()
+             for i in (range(cfg.layers) if n[0] == "layers" else [0])]
+
+    def run(device):
+        init, step = T.make_train_step(cfg, device, **kw)
+        state = init(tree)
+        arrays = [torch.as_tensor(a).cuda() for a in batches[0]]
+        loss, _ = T.info_nce(state.params, 0.05, *arrays)
+        grads = [g for _key, g in T.full_leaves(
+            state.params, torch.autograd.grad(
+                loss, T.param_leaves(state.params)))]
+        del loss, arrays
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for i, bt in enumerate(batches):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            if i == 0:
+                counts.reset()
+            start.record()
+            state, loss = step(state, *bt)
+            end.record()
+            end.synchronize()
+            if i == 0:
+                launches = counts.read()
+            ms.append(start.elapsed_time(end))
+            losses.append(float(loss))
+        return state, grads, losses, ms, launches, \
+            torch.cuda.max_memory_allocated()
+
+    one = run(None)
+    one_state, g_one, l_one, ms_one, n_one, peak_one = one
+    del one, one_state
+    torch.cuda.empty_cache()
+    state, g_mesh, l_mesh, ms_mesh, n_mesh, peak_mesh = run(mesh)
+    per_step = 2 * cfg.layers * MESH_TRAIN_RANKS
+    want = {k: 0 for k in n_mesh}
+    want.update(flash_attn=per_step, flash_attn_bwd_delta=per_step,
+                flash_attn_bwd=per_step)
+    check(n_mesh == want, f"mesh train step launched {n_mesh}, want {want}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(l_mesh, l_one)]
+    check(max(rel) <= TRAIN_LOSS_REL,
+          f"mesh train: losses {l_mesh} vs one device {l_one}")
+    cos = {n: cosine(a, b) for n, a, b in zip(names, g_mesh, g_one,
+                                              strict=True)}
+    barred = {n: c for n, c in cos.items() if "/k_b[" not in n}
+    worst = min(barred, key=barred.get)
+    check(barred[worst] >= TRAIN_GRAD_COS,
+          f"mesh train: gradient {worst} cosine {barred[worst]}")
+    del g_mesh, g_one
+
+    # A checkpoint saved from the mesh, restored on one device.
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        C.save_train_state(state, d, config=cfg)
+        save_s = time.perf_counter() - t0
+        gathered = state.params.params_numpy()
+        del state
+        torch.cuda.empty_cache()
+        init, _ = T.make_train_step(cfg, **kw)
+        t0 = time.perf_counter()
+        restored = C.restore_train_state(d, init(tree))
+        restore_s = time.perf_counter() - t0
+        back = restored.params.params_numpy()
+        equal = all(np.array_equal(back["layers"][k], gathered["layers"][k])
+                    for k in gathered["layers"]) and all(
+            np.array_equal(back[k], gathered[k])
+            for k in gathered if k != "layers")
+        check(equal and restored.step == MESH_TRAIN_STEPS,
+              "mesh checkpoint restored on one device differs")
+        del restored, back, gathered
+    torch.cuda.empty_cache()
+    line = {
+        "phase": "mesh", "part": "train", "card": smi_line(),
+        "ranks": "logical devices, all on cuda:0 (the machine's one card)",
+        "mesh": mesh.shape, "model": MODEL_NAME, "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "steps": MESH_TRAIN_STEPS,
+        "launches_one_step": n_mesh,
+        "launches_one_step_single_device": n_one,
+        "loss_mesh": l_mesh, "loss_single_device": l_one,
+        "loss_rel_max": max(rel), "loss_bar": TRAIN_LOSS_REL,
+        "grad_cos_min": barred[worst], "grad_cos_min_leaf": worst,
+        "grad_bar": TRAIN_GRAD_COS,
+        "k_b_cos_min": min(c for n, c in cos.items() if "/k_b[" in n),
+        "step_ms": ms_mesh, "step_ms_single_device": ms_one,
+        "step_ms_median": statistics.median(ms_mesh[1:]),
+        "step_ms_median_single_device": statistics.median(ms_one[1:]),
+        "peak_memory_gb": peak_mesh / 1e9,
+        "peak_memory_gb_single_device": peak_one / 1e9,
+        "checkpoint": {"restored_on_one_device_equal": equal,
+                       "save_s": save_s, "restore_s": restore_s},
+        "seconds": time.perf_counter() - t_phase}
+    emit(line)
+    return line
+
+
 def train_kernels_and_phase(tatt, docs, counts, peaks, ckpt_dir: Path):
-    """Phase 10: the backward kernels against the plain autograd (a
-    'kernels' line, part 'train'), then the training path (its
-    checkpoint saved to ``ckpt_dir``); returns each backward kernel's
-    (B 32, T 128) row with its launches in the training run."""
+    """Phase 10: the backward kernels against the plain autograd, and
+    phase 13's at a tensor-parallel rank's head counts (a 'kernels'
+    line, part 'train'), then the training path (its checkpoint saved to
+    ``ckpt_dir``) and phase 13's dp×tp train step; returns each backward
+    kernel's (B 32, T 128) row with its launches in the training run."""
     t0 = time.perf_counter()
     (fused, delta), all_rows = flash_bwd_kernels(tatt, peaks)
+    heads = flash_heads(tatt)
     emit({"phase": "kernels", "part": "train", "card": smi_line(),
-          "kernels": all_rows, "seconds": time.perf_counter() - t0})
+          "kernels": all_rows, "mesh_heads": heads,
+          "seconds": time.perf_counter() - t0})
     launches = train_phase(tatt, docs, counts, peaks, ckpt_dir)["launches"]
+    mesh_train_phase(docs, counts)
     return [(delta, launches["flash_attn_bwd_delta"]),
             (fused, launches["flash_attn_bwd"])]
 

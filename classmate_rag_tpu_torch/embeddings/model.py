@@ -20,6 +20,9 @@ package's ``embeddings/model.py``).
   f32-sum product (f32 cotangent times the other bf16 operand, f32
   sums, rounded to the operand's dtype).
 - ``lax.scan`` over the layers becomes a Python loop.
+- ``MeshE5Model`` is the trainable form split over a ("data", "model")
+  ``DeviceMesh`` for the dp×tp train step: its ranks run the same layer
+  at their share of the heads and FFN, with the same gates.
 
 Two gates pick the kernels, from the config alone:
 
@@ -63,6 +66,12 @@ from classmate_rag_tpu_torch.ops.encoder_fused import (
     layer_norm,
     residual_ln,
     residual_ln_reference,
+)
+from classmate_rag_tpu_torch.parallel.tensor import (
+    gather,
+    model_dim,
+    reduce_sum,
+    split_rows,
 )
 
 
@@ -283,6 +292,10 @@ class E5Model(nn.Module):
     the compute dtype at each use; q, k and v are concatenated for the
     same fused product."""
 
+    # Leaves split over a mesh's "model" axis (``MeshE5Model``): none.
+    tp = 1
+    shard_dims: Dict[str, int] = {}
+
     def __init__(self, params: Params, config: EncoderConfig,
                  device: torch.device, trainable: bool = False) -> None:
         super().__init__()
@@ -357,14 +370,8 @@ class E5Model(nn.Module):
                      mask: torch.Tensor) -> torch.Tensor:
         """Token + position + type embeddings with the embedding
         LayerNorm → [B, T, H] f32."""
-        m = mask.to(torch.int64)
-        # RoBERTa position ids: pad_id + 1 onwards for real tokens; pad
-        # tokens point at row pad_id.
-        positions = torch.cumsum(m, dim=1) * m + self.config.pad_id
-        x = (self.word_emb[ids.to(torch.int64)] + self.pos_emb[positions]
-             + self.type_emb[0])
-        return layer_norm(x, self.emb_ln_g, self.emb_ln_b,
-                          self.config.ln_eps)
+        return _embed_tokens(*(getattr(self, k) for k in _TOP_KEYS), ids,
+                             mask, self.config)
 
     def encode_from_embeddings(self, x: torch.Tensor,
                                mask: torch.Tensor) -> torch.Tensor:
@@ -375,14 +382,7 @@ class E5Model(nn.Module):
         nh = cfg.heads
         hd = h // nh
         sm_scale = 1.0 / math.sqrt(hd)
-        attend = functools.partial(
-            flash_attention if t >= cfg.flash_min_seq and t % 128 == 0
-            else attention_reference, dtype=cd)
-        fused = (cfg.fused_epilogue and fusable(b * t, h)
-                 and fusable(b * t, cfg.intermediate))
-        ln = residual_ln if fused else residual_ln_reference
-        gelu = (bias_gelu if fused
-                else functools.partial(bias_gelu_reference, out_dtype=cd))
+        attend, ln, gelu = _layer_ops(cfg, b, t, cfg.intermediate)
 
         mask = mask.to(torch.int32)   # once, not in each layer's attention
         hidden = x.reshape(b * t, h)
@@ -399,17 +399,174 @@ class E5Model(nn.Module):
                         self.ff_out_b[i], self.ff_ln_g[i], self.ff_ln_b[i],
                         cfg.ln_eps)
 
-        # E5 average pooling over real tokens, then L2 norm.
-        m = mask.to(torch.float32)
-        denom = torch.clamp(m.sum(dim=1, keepdim=True), min=1.0)
-        pooled = (hidden.view(b, t, h) * m[:, :, None]).sum(dim=1) / denom
-        norm = torch.linalg.norm(pooled, dim=-1, keepdim=True)
-        return pooled / torch.clamp(norm, min=1e-12)
+        return _pool(hidden.view(b, t, h), mask)
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         return self.encode_from_embeddings(self.embed_tokens(ids, mask), mask)
 
     encode = forward
+
+
+class MeshE5Model(nn.Module):
+    """The trainable encoder over a ("data", "model") ``DeviceMesh``: the
+    JAX package's dp×tp train step (Megatron layout, ``specs`` being
+    ``training.contrastive.encoder_param_specs``).
+
+    - Each leaf lives once, as f32 parameters: a layer leaf split over
+      "model" as one piece a rank on ``mesh[0][m]`` (the ParameterList of
+      ``key`` holds layer i's pieces at [i·tp, (i+1)·tp)); every other
+      leaf on ``mesh[0][0]``. Other data rows read a differentiable
+      ``.to(device)`` copy, so autograd sums the rows' gradients into
+      the one leaf.
+    - Column-split q/k/v and ff_in: a rank's q, k and v pieces hold its
+      own heads, concatenated into one [H, 3·H/tp] product whose output
+      [B, T, 3, heads/tp, 64] gives the attention its q, k and v views
+      (``ops.attention``'s layout); the rank's attention runs at
+      heads/tp heads (the kernel on CUDA, the plain version on the CPU).
+    - Row-split o and ff_out: the ranks' partial sums are added in rank
+      order on the row's first device (``reduce_sum``), where the
+      residual stream, the biases, the LayerNorms and pooling run.
+    - ``forward`` splits the batch over the data rows and returns the
+      rows' vectors concatenated on ``mesh[0][0]``.
+    """
+
+    trainable = True
+
+    def __init__(self, params: Params, config: EncoderConfig, mesh,
+                 specs: Dict[str, Any]) -> None:
+        super().__init__()
+        self.config, self.mesh = config, mesh
+        self.tp = tp = mesh.shape["model"]
+        if config.heads % tp or config.intermediate % tp:
+            raise ValueError(
+                f"tensor-parallel degree {tp} must divide heads="
+                f"{config.heads} and intermediate={config.intermediate}")
+        # A per-layer leaf's split axis: the stacked spec's, less the [L].
+        self.shard_dims = {k: model_dim(sp) - 1
+                           for k, sp in specs["layers"].items()
+                           if model_dim(sp) is not None}
+        home = mesh[0][0]
+
+        def put(arr, dev):   # a copy, never a view
+            return nn.Parameter(torch.tensor(np.asarray(arr, np.float32),
+                                             device=dev))
+
+        for key in _TOP_KEYS:
+            self.register_parameter(key, put(params[key], home))
+        for key, stack in params["layers"].items():
+            dim = self.shard_dims.get(key)
+            setattr(self, key, nn.ParameterList(
+                put(x, home) for x in stack) if dim is None else
+                nn.ParameterList(put(piece, mesh[0][m]) for x in stack
+                                 for m, piece in enumerate(
+                                     np.array_split(x, tp, axis=dim))))
+
+    def _leaf(self, key: str, i: int, m: int) -> torch.Tensor:
+        """Layer i's leaf ``key``: rank m's piece when split."""
+        return getattr(self, key)[i * self.tp + m if key in self.shard_dims
+                                  else i]
+
+    def params_numpy(self) -> Params:
+        """The full tree as numpy, the pieces gathered in rank order."""
+        def get(t):
+            return t.detach().float().cpu().numpy()
+
+        out = {key: get(getattr(self, key)) for key in _TOP_KEYS}
+        L, tp = self.config.layers, self.tp
+        out["layers"] = {key: np.stack([
+            np.concatenate([get(self._leaf(key, i, m)) for m in range(tp)],
+                           axis=self.shard_dims[key])
+            if key in self.shard_dims else get(self._leaf(key, i, 0))
+            for i in range(L)]) for key in _LAYER_KEYS}
+        return out
+
+    def _encode_row(self, d: int, ids: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+        """Data row d's [b, H] vectors, on the row's first device."""
+        cfg = self.config
+        cd = cfg.compute_dtype
+        devs = self.mesh[d]
+        dev = devs[0]
+        ids, mask = ids.to(dev), mask.to(dev)
+        b, t = ids.shape
+        h, tp = cfg.hidden, self.tp
+        nh, hd = cfg.heads // tp, h // cfg.heads
+        sm_scale = 1.0 / math.sqrt(hd)
+        attend, ln, gelu = _layer_ops(cfg, b, t, cfg.intermediate // tp)
+        x = _embed_tokens(*(getattr(self, k).to(dev) for k in _TOP_KEYS),
+                          ids, mask, cfg)
+        mask = mask.to(torch.int32)
+        masks = [mask.to(r) for r in devs]
+        hidden = x.reshape(b * t, h)
+        for i in range(cfg.layers):
+            def w(key, m):
+                return self._leaf(key, i, m).to(devs[m])
+
+            def rep(key):
+                return self._leaf(key, i, 0).to(dev)
+
+            hcd = hidden.to(cd)
+            parts = []
+            for m, r in enumerate(devs):
+                qkv_w = torch.cat([w("q_w", m), w("k_w", m), w("v_w", m)], 1)
+                qkv_b = torch.cat([w("q_b", m), w("k_b", m), w("v_b", m)])
+                qkv = mm_f32(hcd.to(r), qkv_w.to(cd)) + qkv_b
+                q, k, v = qkv.to(cd).view(b, t, 3, nh, hd).unbind(2)
+                ctx = attend(q, k, v, masks[m], sm_scale).view(b * t, nh * hd)
+                parts.append(mm_f32(ctx.to(cd), w("o_w", m).to(cd)))
+            hidden = ln(hidden, reduce_sum(parts), rep("o_b"),
+                        rep("attn_ln_g"), rep("attn_ln_b"), cfg.ln_eps)
+            hcd = hidden.to(cd)
+            parts = [mm_f32(gelu(mm_f32(hcd.to(r), w("ff_in_w", m).to(cd)),
+                                 w("ff_in_b", m)).to(cd),
+                            w("ff_out_w", m).to(cd))
+                     for m, r in enumerate(devs)]
+            hidden = ln(hidden, reduce_sum(parts), rep("ff_out_b"),
+                        rep("ff_ln_g"), rep("ff_ln_b"), cfg.ln_eps)
+        return _pool(hidden.view(b, t, h), mask)
+
+    def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """[B, H] f32 vectors on ``mesh[0][0]``; B must divide over the
+        data rows."""
+        return gather([self._encode_row(d, ids[sl], mask[sl])
+                       for d, sl in enumerate(split_rows(
+                           ids.shape[0], self.mesh.shape["data"]))], 0)
+
+    encode = forward
+
+
+def _embed_tokens(word_emb, pos_emb, type_emb, g, b, ids: torch.Tensor,
+                  mask: torch.Tensor, config: EncoderConfig) -> torch.Tensor:
+    m = mask.to(torch.int64)
+    # RoBERTa position ids: pad_id + 1 onwards for real tokens; pad
+    # tokens point at row pad_id.
+    positions = torch.cumsum(m, dim=1) * m + config.pad_id
+    x = word_emb[ids.to(torch.int64)] + pos_emb[positions] + type_emb[0]
+    return layer_norm(x, g, b, config.ln_eps)
+
+
+def _layer_ops(cfg: EncoderConfig, b: int, t: int, ff_width: int):
+    """(attend, ln, gelu) of a layer at [b, t] and an FFN of ``ff_width``
+    columns: the two gates of the module docstring."""
+    cd = cfg.compute_dtype
+    attend = functools.partial(
+        flash_attention if t >= cfg.flash_min_seq and t % 128 == 0
+        else attention_reference, dtype=cd)
+    fused = (cfg.fused_epilogue and fusable(b * t, cfg.hidden)
+             and fusable(b * t, ff_width))
+    ln = residual_ln if fused else residual_ln_reference
+    gelu = (bias_gelu if fused
+            else functools.partial(bias_gelu_reference, out_dtype=cd))
+    return attend, ln, gelu
+
+
+def _pool(hidden: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """E5 average pooling of [B, T, H] over real tokens, then L2 norm."""
+    m = mask.to(torch.float32)
+    denom = torch.clamp(m.sum(dim=1, keepdim=True), min=1.0)
+    pooled = (hidden * m[:, :, None]).sum(dim=1) / denom
+    norm = torch.linalg.norm(pooled, dim=-1, keepdim=True)
+    return pooled / torch.clamp(norm, min=1e-12)
 
 
 def params_from_numpy(tree: Params, config: EncoderConfig,

@@ -209,7 +209,9 @@ class LlamaCppRunner:
 
 class DecodeRunner:
     """The port's decoder (greedy/nucleus) behind a chat template, on
-    one device (None → CUDA)."""
+    one device (None → CUDA), or dp×tp over ``mesh`` (a ``DeviceMesh``;
+    with ``TPU_DECODE_TP`` set and more than one card of the device's
+    kind, ``auto_mesh_for`` over those cards)."""
 
     def __init__(
         self,
@@ -219,6 +221,7 @@ class DecodeRunner:
         max_seq: int = 1024,
         quantize: Optional[bool] = None,
         device: DeviceLike = None,
+        mesh=None,
     ) -> None:
         from classmate_rag_tpu_torch.embeddings.tokenizer import load_tokenizer
         from classmate_rag_tpu_torch.models.decoder import (
@@ -230,14 +233,10 @@ class DecodeRunner:
             quantize_decoder_params_host,
         )
 
-        self.device = resolve_device(device)
+        self.device = (mesh[0][0] if mesh is not None
+                       else resolve_device(device))
         if quantize is None:
             quantize = _flag("TPU_DECODE_INT8")
-        if _flag("TPU_DECODE_TP") and torch.cuda.device_count() > 1:
-            raise NotImplementedError(
-                f"TPU_DECODE_TP asks for tensor-parallel decode over "
-                f"{torch.cuda.device_count()} cards; multi-card decode is "
-                "not ported yet (ROADMAP §1, multi-GPU)")
 
         # Config comes from the checkpoint when one is given. eos ids are
         # read whatever the config: checkpoints may declare several (e.g.
@@ -311,13 +310,46 @@ class DecodeRunner:
         self.has_pretrained_weights = params is not None
         if params is None:
             params = init_params(self.config, self.model_name)
+        self._mesh = mesh
+        if mesh is None and _flag("TPU_DECODE_TP"):
+            from classmate_rag_tpu_torch.parallel.mesh import local_devices
+
+            cards = local_devices(self.device)
+            if len(cards) > 1:
+                # The tp degree must divide THIS model's kv_heads and
+                # ffn: auto_mesh_for picks the largest one that does.
+                from classmate_rag_tpu_torch.parallel.tp_decode import (
+                    auto_mesh_for,
+                )
+
+                self._mesh = auto_mesh_for(self.config, cards)
+                self.device = self._mesh[0][0]
         # Every tree is numpy here: int8 quantizes on the host, so only
         # int8 + scales cross to the card (bit-equal to the JAX package's
         # on-device quantization).
-        self.quantized = bool(quantize)
-        if self.quantized:
-            params = quantize_decoder_params_host(params, self.config)
-        self.params = params_from_numpy(params, self.config, self.device)
+        self.quantized = bool(quantize) and self._mesh is None
+        if self._mesh is not None:
+            # dp×tp decode: an 8B route model at bf16 exceeds one card's
+            # memory; split it (parallel/tp_decode.py) instead.
+            if quantize:
+                logger.warning(
+                    "TPU_DECODE_INT8 requested but a device mesh is "
+                    "active: int8 quantization only applies to the "
+                    "single-device path; decoding with bf16 sharded "
+                    "weights.")
+            from classmate_rag_tpu_torch.parallel.tp_decode import (
+                shard_decoder_params,
+            )
+
+            self.params = shard_decoder_params(params, self.config,
+                                               self._mesh)
+            self._data_axis = self._mesh.shape["data"]
+        else:
+            if self.quantized:
+                params = quantize_decoder_params_host(params, self.config)
+            self.params = params_from_numpy(params, self.config,
+                                            self.device)
+            self._data_axis = 1
         del params
         if gguf_metadata is not None and gguf_metadata.get(
             "tokenizer.ggml.tokens"
@@ -336,7 +368,16 @@ class DecodeRunner:
         max_new_tokens = min(max_new_tokens, max(max_seq - 64, 16))
         self.max_new = max_new_tokens
         self.max_seq = max_seq
-        self._generate = make_generate_fn(self.config, max_seq, max_new_tokens)
+        if self._mesh is not None:
+            from classmate_rag_tpu_torch.parallel.tp_decode import (
+                make_tp_generate_fn,
+            )
+
+            self._generate = make_tp_generate_fn(
+                self.config, self._mesh, max_seq, max_new_tokens)
+        else:
+            self._generate = make_generate_fn(self.config, max_seq,
+                                              max_new_tokens)
 
     def _format_chat(self, messages: Messages) -> str:
         parts = []
@@ -359,6 +400,9 @@ class DecodeRunner:
         if b == 0:
             return []
         b_pad = 1 << (b - 1).bit_length() if b > 1 else 1
+        # A dp-split batch must divide over the mesh's data axis.
+        if b_pad % self._data_axis:
+            b_pad = self._data_axis * (-(-b_pad // self._data_axis))
         width = self.max_seq - self.max_new
         arr = np.zeros((b_pad, width), dtype=np.int64)
         lens = np.zeros(b_pad, dtype=np.int64)

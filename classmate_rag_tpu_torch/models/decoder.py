@@ -28,7 +28,10 @@ loop.
   reproduced); greedy decoding (temperature <= 0) gives JAX's tokens.
 
 Every entry point runs on the device of the parameters it is given;
-``params_from_numpy(..., device=None)`` places them on CUDA.
+``params_from_numpy(..., device=None)`` places them on CUDA. A layer is
+its attention and SwiGLU blocks (``_attention``, ``_mlp``) and the
+generate loop takes any forward (``decode_loop``), so that the dp×tp
+decode (``parallel/tp_decode.py``) runs them on each rank.
 """
 
 from __future__ import annotations
@@ -496,11 +499,15 @@ def _rope(x: torch.Tensor, cos: torch.Tensor,
     return x * cos + torch.cat([x[..., half:], x[..., :half]], dim=-1) * sin
 
 
-def _layer(lp: Params, hidden: torch.Tensor, cos, sin,
-           k_cache: torch.Tensor, v_cache: torch.Tensor, offset: int,
-           attn_mask: torch.Tensor, config: DecoderConfig) -> torch.Tensor:
-    """One decoder layer; writes this step's K/V into the layer's cache
-    ([B, KH, S, D]) at slots [offset, offset + T)."""
+def _attention(lp: Params, hidden: torch.Tensor, cos, sin,
+               k_cache: torch.Tensor, v_cache: torch.Tensor, offset: int,
+               attn_mask: torch.Tensor,
+               config: DecoderConfig) -> torch.Tensor:
+    """A layer's attention block up to its o_proj product, before the
+    residual add: f32 [B, T, hidden]. Writes this step's K/V into the
+    layer's cache ([B, KH, S, D]) at slots [offset, offset + T). On a
+    tensor-parallel rank (``config`` at the rank's head counts, ``lp``
+    its shards) it is the rank's partial sum of o_proj."""
     cdtype = config.compute_dtype
     B, T, _ = hidden.shape
     H, KH, D = config.heads, config.kv_heads, config.head_dim
@@ -536,13 +543,29 @@ def _layer(lp: Params, hidden: torch.Tensor, cos, sin,
     probs = torch.softmax(scores, dim=-1).to(cdtype).view(B * KH, G * T, S)
     ctx = (bmm_f32(probs, vc).view(B, KH, G, T, D).permute(0, 3, 1, 2, 4)
            .reshape(B, T, H * D))
-    hidden = hidden + _mm(ctx.to(cdtype), lp["o_w"], cdtype)
+    return _mm(ctx.to(cdtype), lp["o_w"], cdtype)
 
+
+def _mlp(lp: Params, hidden: torch.Tensor,
+         config: DecoderConfig) -> torch.Tensor:
+    """A layer's SwiGLU block up to its down_proj product, before the
+    residual add (a tensor-parallel rank's partial sum)."""
+    cdtype = config.compute_dtype
     normed2 = _rms_norm(hidden, lp["ffn_norm"], config.norm_eps).to(cdtype)
     gate = _mm(normed2, lp["gate_w"], cdtype)
     up = _mm(normed2, lp["up_w"], cdtype)
     ff = F.silu(gate) * up
-    return hidden + _mm(ff.to(cdtype), lp["down_w"], cdtype)
+    return _mm(ff.to(cdtype), lp["down_w"], cdtype)
+
+
+def _layer(lp: Params, hidden: torch.Tensor, cos, sin,
+           k_cache: torch.Tensor, v_cache: torch.Tensor, offset: int,
+           attn_mask: torch.Tensor, config: DecoderConfig) -> torch.Tensor:
+    """One decoder layer; writes this step's K/V into the layer's cache
+    ([B, KH, S, D]) at slots [offset, offset + T)."""
+    hidden = hidden + _attention(lp, hidden, cos, sin, k_cache, v_cache,
+                                 offset, attn_mask, config)
+    return hidden + _mlp(lp, hidden, config)
 
 
 def _layer_params(layers: Params, i: int) -> Params:
@@ -629,6 +652,57 @@ def _long(x, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), dtype=torch.long).to(dev)
 
 
+def decode_loop(forward_last, dev: torch.device, prompt_ids, prompt_len,
+                seed, temperature, top_p, eos_ids, max_seq: int,
+                max_new: int) -> torch.Tensor:
+    """The generate loop of ``make_generate_fn`` over any forward:
+    ``forward_last(ids, positions, cache_offset, attn_mask)`` returns the
+    logits [B, V] of each row's last position (and writes its cache).
+    Sampling runs on ``dev``, with one generator there."""
+    ids = _long(prompt_ids, dev)
+    plen = _long(prompt_len, dev)
+    eos = _long(eos_ids, dev).reshape(-1)
+    pad_tok = eos[0]
+    B, P = ids.shape
+    if P + max_new > max_seq:
+        raise ValueError(
+            f"prompt width {P} + {max_new} new tokens exceed the "
+            f"{max_seq}-slot cache")
+    temperature, top_p = float(temperature), float(top_p)
+    pad_offset = P - plen                                    # [B]
+    slot = torch.arange(P, device=dev)[None, :]              # [1, P]
+    positions = slot - pad_offset[:, None]                   # [B, P]
+    real = positions >= 0
+    key_slot = torch.arange(max_seq, device=dev)[None, None, :]
+    valid_key = key_slot >= pad_offset[:, None, None]
+
+    # Prefill mask over cache slots: the key slot holds a real prompt
+    # token and is causal; left-pad query rows mask every key (and
+    # softmax to uniform, not NaN: every score is NEG_INF + s).
+    causal = key_slot <= slot[:, :, None]
+    mask = torch.where(valid_key & causal & real[:, :, None], 0.0, NEG_INF)
+    cur = forward_last(ids, positions.clamp_min(0), 0, mask)
+    del mask
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    toks = []
+    for i in range(max_new):
+        tok = _sample(cur, gen, temperature, top_p)
+        tok = torch.where(done, pad_tok, tok)
+        toks.append(tok)
+        if i == max_new - 1:
+            break
+        done = done | (tok[:, None] == eos[None, :]).any(dim=1)
+        write_slot = P + i
+        step_mask = torch.where(
+            valid_key & (key_slot <= write_slot), 0.0, NEG_INF)
+        cur = forward_last(tok[:, None], (write_slot - pad_offset)[:, None],
+                           write_slot, step_mask)
+    return torch.stack(toks, dim=1)                          # [B, max_new]
+
+
 def make_generate_fn(config: DecoderConfig, max_seq: int, max_new: int):
     """Build generate(params, prompt_ids, prompt_len, seed, temperature,
     top_p, eos_ids) → token ids [B, max_new] (eos-padded), on the device
@@ -647,53 +721,18 @@ def make_generate_fn(config: DecoderConfig, max_seq: int, max_new: int):
     def generate(params, prompt_ids, prompt_len, seed, temperature, top_p,
                  eos_ids):
         dev = params["final_norm"].device
-        ids = _long(prompt_ids, dev)
-        plen = _long(prompt_len, dev)
-        eos = _long(eos_ids, dev).reshape(-1)
-        pad_tok = eos[0]
-        B, P = ids.shape
-        if P + max_new > max_seq:
-            raise ValueError(
-                f"prompt width {P} + {max_new} new tokens exceed the "
-                f"{max_seq}-slot cache")
-        temperature, top_p = float(temperature), float(top_p)
-        cache = empty_cache(config, B, max_seq, device=dev)
-        pad_offset = P - plen                                    # [B]
-        slot = torch.arange(P, device=dev)[None, :]              # [1, P]
-        positions = slot - pad_offset[:, None]                   # [B, P]
-        real = positions >= 0
-        key_slot = torch.arange(max_seq, device=dev)[None, None, :]
-        valid_key = key_slot >= pad_offset[:, None, None]
+        cache = None
 
-        # Prefill mask over cache slots: the key slot holds a real prompt
-        # token and is causal; left-pad query rows mask every key (and
-        # softmax to uniform, not NaN: every score is NEG_INF + s).
-        causal = key_slot <= slot[:, :, None]
-        mask = torch.where(valid_key & causal & real[:, :, None],
-                           0.0, NEG_INF)
-        logits, cache = forward(params, ids, positions.clamp_min(0), cache,
-                                0, config, attn_mask=mask)
-        cur = logits[:, -1, :]          # all rows end at slot P-1
-        del logits, mask
+        def forward_last(ids, positions, offset, mask):
+            nonlocal cache
+            if cache is None:
+                cache = empty_cache(config, ids.shape[0], max_seq,
+                                    device=dev)
+            logits, cache = forward(params, ids, positions, cache, offset,
+                                    config, attn_mask=mask)
+            return logits[:, -1, :]      # all rows end at the last slot
 
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(seed))
-        done = torch.zeros(B, dtype=torch.bool, device=dev)
-        toks = []
-        for i in range(max_new):
-            tok = _sample(cur, gen, temperature, top_p)
-            tok = torch.where(done, pad_tok, tok)
-            toks.append(tok)
-            if i == max_new - 1:
-                break
-            done = done | (tok[:, None] == eos[None, :]).any(dim=1)
-            write_slot = P + i
-            step_mask = torch.where(
-                valid_key & (key_slot <= write_slot), 0.0, NEG_INF)
-            logits, cache = forward(
-                params, tok[:, None], (write_slot - pad_offset)[:, None],
-                cache, write_slot, config, attn_mask=step_mask)
-            cur = logits[:, 0, :]
-        return torch.stack(toks, dim=1)                          # [B, max_new]
+        return decode_loop(forward_last, dev, prompt_ids, prompt_len, seed,
+                           temperature, top_p, eos_ids, max_seq, max_new)
 
     return generate

@@ -13,6 +13,10 @@ with ``weights_only=True``. Keys name the JAX tree's paths:
   int64 tensors;
 - ``step``.
 
+A state trained on a mesh is saved with its split leaves gathered, in
+the single-device format, and restores onto a mesh (split again) or
+onto one device alike.
+
 ``encoder_config.json`` in the root describes the architecture, as in
 the JAX package, so ``get_embedder(checkpoint=...)`` (or
 ``ENCODER_CHECKPOINT``) can serve the fine-tune. The JAX package's
@@ -37,55 +41,51 @@ import torch
 from classmate_rag_tpu_torch.embeddings.model import EncoderConfig, Params
 from classmate_rag_tpu_torch.training.contrastive import (
     TrainState,
+    full_leaves,
+    leaf_layout,
     param_leaves,
-    param_names,
 )
 
 _CONFIG_FILE = "encoder_config.json"
 _STATE_FILE = "train_state.pt"
 
 
-def _leaf_keys(layers: int) -> List[Tuple[str, Optional[int]]]:
-    """(tree path, layer) of each optimizer leaf, in leaf order."""
-    out: List[Tuple[str, Optional[int]]] = []
-    for name in param_names():
-        if name[0] == "layers":
-            out.extend((f"layers/{name[1]}", i) for i in range(layers))
-        else:
-            out.append((name[0], None))
-    return out
-
-
-def _flatten(prefix: str, obj, layers: int, out: Dict[str, torch.Tensor]):
+def _flatten(prefix: str, obj, model, out: Dict[str, torch.Tensor]):
     if isinstance(obj, bool) or not isinstance(obj, (int, dict, list)):
         raise TypeError(f"{prefix}: cannot checkpoint {type(obj).__name__}")
     if isinstance(obj, int):
         out[prefix] = torch.tensor(obj, dtype=torch.int64)
     elif isinstance(obj, dict):
         for k, v in obj.items():
-            _flatten(f"{prefix}/{k}", v, layers, out)
-    else:   # leaves in optimizer order: stack each layer key's layers
+            _flatten(f"{prefix}/{k}", v, model, out)
+    else:   # leaves in optimizer order: whole leaves (a split one's
+        # pieces gathered), each layer key's layers stacked
         groups: Dict[str, List[torch.Tensor]] = {}
-        for (path, _i), leaf in zip(_leaf_keys(layers), obj, strict=True):
-            groups.setdefault(path, []).append(leaf.detach())
+        for (path, _i), leaf in full_leaves(model, obj):
+            groups.setdefault(path, []).append(leaf)
         for path, ts in groups.items():
-            t = torch.stack(ts) if path.startswith("layers/") else ts[0]
-            out[f"{prefix}/{path}"] = t.float().cpu()
+            out[f"{prefix}/{path}"] = (torch.stack(ts)
+                                       if path.startswith("layers/")
+                                       else ts[0])
 
 
 def _load_into(prefix: str, template, flat: Dict[str, torch.Tensor],
-               layers: int):
+               layout, tp: int):
     """``template``'s structure with the values of ``flat``; tensors are
-    copied into the template's own (on its device)."""
+    copied into the template's own (on their devices; a split leaf's
+    piece into each rank's)."""
     if isinstance(template, int):
         return int(flat[prefix])
     if isinstance(template, dict):
-        return {k: _load_into(f"{prefix}/{k}", v, flat, layers)
+        return {k: _load_into(f"{prefix}/{k}", v, flat, layout, tp)
                 for k, v in template.items()}
     with torch.no_grad():
-        for (path, i), leaf in zip(_leaf_keys(layers), template, strict=True):
+        for (path, i, dim, m), leaf in zip(layout, template, strict=True):
             src = flat[f"{prefix}/{path}"]
-            leaf.copy_(src[i] if i is not None else src)
+            src = src[i] if i is not None else src
+            if dim is not None:
+                src = torch.tensor_split(src, tp, dim=dim)[m]
+            leaf.copy_(src)
     return template
 
 
@@ -127,10 +127,9 @@ def save_train_state(state: TrainState, directory: str | Path,
     root = Path(directory).resolve()
     path = root / f"step_{int(state.step)}"
     path.mkdir(parents=True, exist_ok=True)
-    layers = state.params.config.layers
     flat: Dict[str, torch.Tensor] = {}
-    _flatten("params", param_leaves(state.params), layers, flat)
-    _flatten("opt_state", state.opt_state, layers, flat)
+    _flatten("params", param_leaves(state.params), state.params, flat)
+    _flatten("opt_state", state.opt_state, state.params, flat)
     flat["step"] = torch.tensor(int(state.step), dtype=torch.int64)
     tmp = path / f".{_STATE_FILE}.tmp"
     torch.save(flat, tmp)
@@ -164,9 +163,10 @@ def restore_train_state(directory: str | Path,
         return None
     flat = torch.load(_state_file(path), map_location="cpu",
                       weights_only=True, mmap=True)
-    layers = template.params.config.layers
-    _load_into("params", param_leaves(template.params), flat, layers)
-    opt_state = _load_into("opt_state", template.opt_state, flat, layers)
+    layout, tp = leaf_layout(template.params), template.params.tp
+    _load_into("params", param_leaves(template.params), flat, layout, tp)
+    opt_state = _load_into("opt_state", template.opt_state, flat, layout,
+                           tp)
     return TrainState(template.params, opt_state, int(flat["step"]))
 
 

@@ -21,8 +21,9 @@ Each piece follows optax 0.2's arithmetic, in its order:
   step's update is zero.
 
 Leaves are lists of tensors in one fixed order (the trainer's parameter
-order). The updates are applied in place (``apply_updates``), where the
-JAX package returns new arrays.
+order), on one device or on a mesh's (each moment beside its leaf). The
+updates are applied in place (``apply_updates``), where the JAX package
+returns new arrays.
 """
 
 from __future__ import annotations
@@ -110,22 +111,33 @@ def lr_schedule(learning_rate: float, warmup_steps: int = 0,
 
 
 def global_norm(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's sum of squares."""
-    total = None
-    for x in leaves:
-        sq = torch.sum(x * x)
-        total = sq if total is None else total + sq
+    """sqrt of the sum over leaves of each leaf's sum of squares: each
+    sum on its leaf's device, added in leaf order on the first leaf's.
+    The pieces of a leaf split over a mesh are leaves here, so each
+    logical leaf counts once."""
+    sums = [torch.sum(x * x) for x in leaves]
+    total = sums[0]
+    for sq in sums[1:]:
+        total = total + sq.to(total.device)
     return torch.sqrt(total)
 
 
 def clip_by_global_norm(grads: Leaves, max_norm: float) -> Leaves:
     """optax.clip_by_global_norm: ``grads`` as they are when their
-    global norm is below ``max_norm``, else each (g / norm) · max_norm."""
+    global norm is below ``max_norm``, else each (g / norm) · max_norm
+    (the norm copied to each device the leaves are on)."""
     norm = global_norm(grads)
     if bool(norm < max_norm):
         return list(grads)
-    scaled = torch._foreach_div(list(grads), norm)
-    torch._foreach_mul_(scaled, max_norm)
+    scaled = list(grads)
+    by_device: Dict[torch.device, List[int]] = {}
+    for i, g in enumerate(grads):
+        by_device.setdefault(g.device, []).append(i)
+    for dev, idx in by_device.items():
+        out = torch._foreach_div([grads[i] for i in idx], norm.to(dev))
+        torch._foreach_mul_(out, max_norm)
+        for i, g in zip(idx, out):
+            scaled[i] = g
     return scaled
 
 

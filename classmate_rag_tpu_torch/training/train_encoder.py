@@ -4,7 +4,8 @@ split and JSON lines).
 
 Mines deterministic (query, passage) pairs from the live catalog
 (``training/data.py``), runs the InfoNCE step (``training/
-contrastive.py``) on one CUDA card, tracks in-batch retrieval accuracy
+contrastive.py``) over ``training_mesh()`` of the local CUDA cards (dp×tp;
+one card: the single-device step), tracks in-batch retrieval accuracy
 on a held-out slice and writes checkpoints (``training/checkpoint.py``).
 Run from the directory whose ./indexes you want to train on:
 
@@ -54,7 +55,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[Sequence[str]] = None,
          device: DeviceLike = None) -> int:
-    """The tool; ``device`` None is CUDA (the tests pass the CPU)."""
+    """The tool; ``device`` None is CUDA, on every local card (the tests
+    pass the CPU)."""
     args = parse_args(argv)
 
     from classmate_rag_tpu_torch.embeddings.model import (
@@ -64,6 +66,10 @@ def main(argv: Optional[Sequence[str]] = None,
     )
     from classmate_rag_tpu_torch.embeddings.tokenizer import load_tokenizer
     from classmate_rag_tpu_torch.index.catalog import Catalog
+    from classmate_rag_tpu_torch.parallel.mesh import (
+        local_devices,
+        training_mesh,
+    )
     from classmate_rag_tpu_torch.training import (
         make_eval_step,
         make_train_step,
@@ -77,7 +83,7 @@ def main(argv: Optional[Sequence[str]] = None,
         mine_pairs,
     )
 
-    dev = resolve_device(device)
+    mesh = training_mesh(devices=local_devices(resolve_device(device)))
     config = getattr(EncoderConfig, args.config)()
     if args.indexes:
         bm25_dir = Path(args.indexes) / "bm25"
@@ -114,11 +120,11 @@ def main(argv: Optional[Sequence[str]] = None,
         params = init_params(config, f"train-{args.config}")
 
     init_state, train_step = make_train_step(
-        config, dev, learning_rate=args.lr,
+        config, mesh, learning_rate=args.lr,
         warmup_steps=args.warmup_steps, total_steps=args.steps,
         accum_steps=args.accum_steps,
     )
-    eval_step = make_eval_step(config, dev)
+    eval_step = make_eval_step(config, mesh)
     state = init_state(params)
 
     ckpt_dir = Path(args.checkpoint_dir) if args.checkpoint_dir else None
@@ -182,8 +188,8 @@ def main(argv: Optional[Sequence[str]] = None,
         "eval_loss_start": round(loss0, 4), "eval_acc_start": round(acc0, 4),
         # Steps run this session over this session's wall time.
         "steps_per_s": round((step - start_step) / max(dt, 1e-9), 2),
-        "mesh": {"data": 1, "model": 1},   # one device
-        "device": str(dev),
+        "mesh": mesh.shape,
+        "device": str(mesh[0][0]),
         "checkpoint": str(final_path) if final_path else None,
     }))
     return 0

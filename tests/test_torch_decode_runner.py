@@ -280,16 +280,30 @@ def test_int8_runner_matches(tmp_path, monkeypatch):
     assert _agree_until_near_tie(j, t, prompts) <= 1
 
 
-def test_tensor_parallel_request_raises(monkeypatch):
+def test_tensor_parallel_request_decodes_dp_tp(monkeypatch):
+    """TPU_DECODE_TP with more than one card of the runner's kind (four
+    CPU devices stand for four cards) decodes dp×tp on auto_mesh_for's
+    mesh, (2, 2) for tiny_test's 2 KV heads, with the unsharded runner's
+    answers; one card decodes unsharded."""
+    from classmate_rag_tpu_torch.parallel import mesh as tmesh
+
+    single = TR.DecodeRunner(config=T.DecoderConfig.tiny_test(),
+                             device="cpu", **RUN)
     monkeypatch.setenv("TPU_DECODE_TP", "1")
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1, multi-GPU"):
-        TR.DecodeRunner(config=T.DecoderConfig.tiny_test(), device="cpu",
-                        **RUN)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(tmesh, "local_devices",
+                        lambda device=None: [torch.device("cpu")] * 4)
     r = TR.DecodeRunner(config=T.DecoderConfig.tiny_test(), device="cpu",
                         **RUN)
-    assert isinstance(r.chat(CONVS[0], temperature=0.0), str)
+    assert r._mesh.shape == {"data": 2, "model": 2}
+    assert r.chat_batch(CONVS, temperature=0.0) == single.chat_batch(
+        CONVS, temperature=0.0)
+    assert r.chat(CONVS[0], temperature=0.0) == single.chat(
+        CONVS[0], temperature=0.0)
+    monkeypatch.setattr(tmesh, "local_devices",
+                        lambda device=None: [torch.device("cpu")])
+    r = TR.DecodeRunner(config=T.DecoderConfig.tiny_test(), device="cpu",
+                        **RUN)
+    assert r._mesh is None and isinstance(r.params["lm_head"], torch.Tensor)
 
 
 def _cfg(monkeypatch, **env):

@@ -1,8 +1,9 @@
 """The port stands alone: it imports neither JAX (nor optax or orbax) nor
 the JAX package, nor the JAX package's command line (``cli``), with every
-module of it imported and its paths driven (the sharded engine of
-``parallel/`` too), and a default-device call without CUDA raises instead
-of running on the CPU. Both checks run in a fresh interpreter."""
+module of it imported and its paths driven (the sharded engine, the
+dp×tp train step and tp decode of ``parallel/`` too), and a
+default-device call without CUDA (a training mesh without devices
+too) raises instead of running on the CPU. Both checks run in a fresh interpreter."""
 
 import os
 import subprocess
@@ -129,6 +130,21 @@ def test_port_imports_and_queries_without_jax():
         ids = np.ones((4, 16), np.int32)
         state, loss = step(state, ids, ids, ids, ids)
         save_train_state(state, root / "ck", config=ecfg)
+        # dp×tp: a train step on a (2, 4) mesh and a tp decode.
+        from classmate_rag_tpu_torch.parallel import (
+            DeviceMesh, make_tp_generate_fn, shard_decoder_params,
+            training_mesh)
+        from classmate_rag_tpu_torch.parallel import tensor, tp_decode
+        mesh = training_mesh(devices=["cpu"] * 8)
+        assert mesh.shape == {"data": 2, "model": 4}
+        init, step = make_train_step(ecfg, mesh)
+        _, loss = step(init(init_params(ecfg, "iso")), ids, ids, ids, ids)
+        assert np.isfinite(float(loss))
+        tp = DeviceMesh([["cpu", "cpu"]])
+        toks = make_tp_generate_fn(cfg, tp, 16, 4)(
+            shard_decoder_params(decoder.init_params(cfg, "iso"), cfg, tp),
+            np.full((1, 4), 5), np.array([4]), 0, 0.0, 1.0, 2)
+        assert toks.shape == (1, 4)
         os.environ.update(EMBEDDING_BACKEND="e5")
         enc = get_embedder(checkpoint=str(root / "ck"), device="cpu")
         assert enc.encode_queries(["a b"]).shape == (1, 64)
@@ -155,9 +171,10 @@ def test_default_device_without_cuda_raises():
         from classmate_rag_tpu_torch.embeddings.model import EncoderConfig
         from classmate_rag_tpu_torch.training import make_train_step
         from classmate_rag_tpu_torch.cli.main import main as cli_main
-        from classmate_rag_tpu_torch.parallel import corpus_mesh
+        from classmate_rag_tpu_torch.parallel import (
+            corpus_mesh, training_mesh)
         for call in (lambda: IndexStore(8), lambda: resolve_device(None),
-                     lambda: corpus_mesh(),
+                     lambda: corpus_mesh(), lambda: training_mesh(),
                      lambda: cli_main(["stats"]),
                      lambda: make_train_step(EncoderConfig.small_test()),
                      lambda: resolve_device("cuda"),

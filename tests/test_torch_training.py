@@ -130,12 +130,33 @@ def test_eval_step_matches_jax():
         assert float(t_acc) == float(j_acc)
 
 
-def test_more_than_one_device_raises():
-    _, tcfg = _configs("f32")
-    with pytest.raises(NotImplementedError, match="ROADMAP §1, multi-GPU"):
-        t_make_train(tcfg, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1, multi-GPU"):
-        t_make_eval(tcfg, _mesh())
+def test_card_count_or_mesh_trains(monkeypatch):
+    """A count of cards trains over ``training_mesh`` of the local cards
+    (two CPU devices stand for two cards) and a mesh evaluates, each
+    with the single-device step's loss (f32, rel 1e-5); a count past the
+    cards found raises."""
+    from classmate_rag_tpu_torch.parallel import mesh as tmesh
+    from classmate_rag_tpu_torch.parallel.mesh import DeviceMesh
+
+    monkeypatch.setattr(tmesh, "local_devices",
+                        lambda device=None: [torch.device("cpu")] * 2)
+    monkeypatch.setattr(tmesh, "resolve_device",
+                        lambda device=None: torch.device("cpu"))
+    jcfg, tcfg = _configs("f32")
+    tree = _tree(jcfg)
+    batch = _batches(1, seed=6)[0]
+    init2, step2 = t_make_train(tcfg, 2, learning_rate=LR)
+    init1, step1 = t_make_train(tcfg, "cpu", learning_rate=LR)
+    two, l2 = step2(init2(tree), *batch)
+    one, l1 = step1(init1(tree), *batch)
+    assert two.params.mesh.shape == {"data": 1, "model": 2}
+    assert abs(float(l2) - float(l1)) <= 1e-5 * abs(float(l1))
+    mesh = DeviceMesh([["cpu"], ["cpu"]])
+    e_loss, _ = t_make_eval(tcfg, mesh)(init2(tree).params, *batch)
+    want, _ = t_make_eval(tcfg, "cpu")(init1(tree).params, *batch)
+    assert abs(float(e_loss) - float(want)) <= 1e-5 * abs(float(want))
+    with pytest.raises(ValueError, match="3 cards; 2 found"):
+        t_make_train(tcfg, 3)
 
 
 # ---------------------------------------------------------------------------
