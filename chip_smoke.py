@@ -9,16 +9,20 @@ product path, the answer generator (Llama-3.1-8B at full width; it
 runs no hand-written kernel), the encoder's fine-tuning with the
 flash attention backward kernels, the routed ask with the index's
 admin verbs through the port's command line, the corpus-sharded
-serving engine with data-parallel encode, and dp×tp training and
-decode over ("data", "model") meshes of logical ranks on the one card.
+serving engine with data-parallel encode, dp×tp training and decode
+over ("data", "model") meshes of logical ranks on the one card, the
+same sharded engine served by two processes, and the int8 scan.
 
     python3 chip_smoke.py            # on a machine with one NVIDIA GPU
     python3 chip_smoke.py --product-child DIR   # phase 8's child alone
     python3 chip_smoke.py --decode-child        # phase 9's child alone
+    python3 chip_smoke.py --multihost-child RANK DIR ADDR   # a phase 14 rank
 
 Phases, one JSON line each; any failure exits non-zero with no result:
 
-1. device     card name and power limit (nvidia-smi), kernel build seconds;
+1. device     card name and power limit (nvidia-smi), kernel build seconds,
+              the chip utils/profiling.py detects (its peak table gives
+              every bound);
 2. kernels    each kernel vs its plain version at the main paths' shapes
               and at edge cases (topk_scan also at 1,048,576 rows;
               topk_merge, its second launch, merges its lists); its
@@ -60,7 +64,10 @@ Phases, one JSON line each; any failure exits non-zero with no result:
               answers with the decoder (LLM_BACKEND=tpu, temperature 0,
               64 new tokens): 8 asks and 8 concurrent /asks, every
               answer non-empty, one runner built (a "decode" line,
-              part "product");
+              part "product"); the native tokenizer and packer loaded
+              (native/; the add packs with it) and equal to the
+              Python path on the first 20,000 chunks (cut from 200,000),
+              seconds each way;
 9. decode     in a child (--decode-child): Llama-3.1-8B at full width
               (32 layers, weights drawn on the card from a seed) decodes
               8 prompts left-padded to 1,024 (real lengths 512-1,024),
@@ -171,6 +178,28 @@ Phases, one JSON line each; any failure exits non-zero with no result:
               E5-base's 12 at tp 4 and 2), with padded rows, against the
               plain version (phase 2's and phase 10's bars).
 
+14. multihost (run after phase 12) phase 3's store, saved with the
+              port's persistence right after phase 3 with its 4 batches
+              and their single-device results, served by 2 processes
+              (--multihost-child, gloo: NCCL refuses two ranks on one
+              card) × 2 shards on cuda:0 through a 4-shard
+              ShardedHybridIndex over process_corpus_mesh: the 4 batches
+              and one filtered batch (launch counts reset just before,
+              read just after: 2 scans and 2 merges a batch a rank),
+              rows equal to the single-device rows as in phase 12, equal
+              on both ranks; then both ranks replay one add and one
+              delete: an O(delta) refresh (0 < bytes < half the base,
+              equal on both ranks, no full lexical rebuild), rows equal
+              the store's own single-device step; warm batch ms beside
+              phase 12's, the bytes each rank receives a batch.
+15. int8      (run after phase 5) ops/quant.py's topk_int8_rescore at N
+              262,144 (the slice store) and 1,048,576, d 768, Q 256,
+              pool 64, k 8: the card against the port's CPU version on
+              16 queries (rows equal but at near-ties within 1e-5), set
+              recall@8 against topk_scan's exact top-8, its time, its
+              int8 product's alone and topk_scan's at k 8 and 64 beside
+              its bytes bound, peak memory.
+
 Then the kernels line ({"kernels": [...]}), the nvidia-smi line, and
 last {"ok": true, "device": {...}}. A kernel's ``ms`` (and the plain
 and library times beside it) is CUDA-event time over 20 calls in a row
@@ -231,14 +260,6 @@ PRODUCT_ASKS = 32
 PRODUCT_CPU_ASKS = 8   # asks held against a store loaded anew on the CPU
 BACKWARD_KERNELS = ("flash_attn_bwd_delta", "flash_attn_bwd")  # training
 
-# Published dense peaks (NVIDIA data sheets): memory bytes/s, bf16
-# tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
-PEAKS = {
-    "H100 PCIe": (2.0e12, 756e12, 51e12),
-    "H100 NVL": (3.9e12, 835e12, 60e12),
-    "H100": (3.35e12, 989e12, 67e12),      # SXM5, 80 GB HBM3
-    "H200": (4.8e12, 989e12, 67e12),
-}
 
 
 class SmokeFailure(RuntimeError):
@@ -264,10 +285,21 @@ def smi_line() -> str:
 
 
 def peaks_for(name: str):
-    for key, val in PEAKS.items():
-        if key in name:
-            return key, val
-    raise SmokeFailure(f"no published peaks for card {name!r}")
+    """The card's published peaks from the port's table
+    (utils/profiling.py): (its key, (memory bytes/s, bf16 tensor-core
+    FLOP/s, f32 FLOP/s outside the tensor cores, int8 tensor-core
+    ops/s))."""
+    from classmate_rag_tpu_torch.utils.profiling import (
+        _detect_chip,
+        device_peaks,
+    )
+
+    key = _detect_chip(name)
+    if key == "cpu":
+        raise SmokeFailure(f"no published peaks for card {name!r}")
+    bf16_tflops, gbs, f32_tflops, int8_tops = device_peaks(key)
+    return key, (gbs * 1e9, bf16_tflops * 1e12, f32_tflops * 1e12,
+                 int8_tops * 1e12)
 
 
 # ---------------------------------------------------------------------------
@@ -739,7 +771,7 @@ def epilogue_kernels(tef, peaks):
     tokens of E5-base) and at ragged ones."""
     import torch.nn.functional as F
 
-    bw, _bf16_peak, f32_peak = peaks
+    bw, _bf16_peak, f32_peak, _int8_peak = peaks
     g = torch.Generator(device="cuda").manual_seed(11)
 
     def normal(*shape, std=1.0, mean=0.0):
@@ -798,7 +830,7 @@ def flash_kernel(tatt, peaks):
     numbers."""
     import torch.nn.functional as F
 
-    bw, bf16_peak, _f32 = peaks
+    bw, bf16_peak, _f32, _int8_peak = peaks
     nh, hd = 12, 64
     rng = np.random.default_rng(12)
     rows = {}
@@ -1267,7 +1299,7 @@ def compare_engine(got, want) -> dict:
 
 
 def sharded_phase(store, catalog, batches, oracle_sets, questions, enc,
-                  tree, docs, rng, counts, knobs) -> None:
+                  tree, docs, rng, counts, knobs) -> dict:
     """The corpus-sharded engine (ShardedHybridIndex) over the slice
     store with 4 logical shards on cuda:0, then data-parallel encode."""
     from classmate_rag_tpu_torch.config import load_config
@@ -1475,6 +1507,361 @@ def sharded_phase(store, catalog, batches, oracle_sets, questions, enc,
         "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi_line(),
     }
     emit(line)
+    return line
+
+
+# ---------------------------------------------------------------------------
+# Multi-process serving (phase 14): the slice store saved as phase 3 left
+# it, served by 2 processes × 2 shards on cuda:0 over gloo
+# ---------------------------------------------------------------------------
+
+MH_RANKS = 2            # processes, each on SHARD_DEVICE (gloo: one card)
+MH_SHARDS = 2           # shards a process: 4 in all, as in phase 12
+MH_TIMEOUT_S = 300      # the process group's timeout (a collective's)
+MH_CHILD_S = 600        # the children's deadline
+MH_NEW_CHUNKS = 10      # the document both ranks add
+
+
+def multihost_save(root: Path, store, docs, batches, outs, where,
+                   knobs) -> None:
+    """Phase 3's store persisted in ``root`` with the port's persistence
+    (a catalog JSONL in bm25/, the saved store in dense/), with phase 3's
+    4 batches and their single-device results, and one filtered batch's
+    (queries.npz, terms.json)."""
+    from classmate_rag_tpu_torch.index.catalog import Catalog
+    from classmate_rag_tpu_torch.index.store import IndexStore
+
+    bm25 = root / "bm25"
+    bm25.mkdir(parents=True)
+    with (bm25 / "bm25_index.jsonl").open("w", encoding="utf-8") as f:
+        for i, cid in enumerate(store.ids):
+            f.write(json.dumps({"id": cid, "text": " ".join(docs[i]),
+                                "tokens": docs[i],
+                                "metadata": chunk_meta(i)}) + "\n")
+    catalog = Catalog.load_or_create(bm25)
+    copy = IndexStore.from_host_state(
+        store.host_state(), device="cpu", directory=root / "dense",
+        slab_rows=store.slab_rows)
+    copy.save(catalog_fingerprint=catalog.fingerprint())
+    q = np.stack([qv for b in batches for qv, _t in b])
+    filt = store.hybrid_topk_batch(q[:BATCH], [t for _q, t in batches[0]],
+                                   where, **knobs)
+    res = [o for o, _rows in outs] + [filt]
+    arrays = {"q": q}
+    for field in ("rows", "fused", "vec_dist", "bm25_score"):
+        arrays[field] = np.stack([getattr(o, field).cpu().numpy()
+                                  for o in res])
+    np.savez(root / "queries.npz", **arrays)
+    (root / "terms.json").write_text(json.dumps(
+        {"terms": [t for b in batches for _q, t in b], "where": where}))
+
+
+def multihost_child(rank: int, root: Path, addr: str) -> int:
+    """One rank of phase 14: join the group (gloo), load the saved store
+    on cuda:0, serve it through a 4-shard ShardedHybridIndex over both
+    processes (2 shards each), hold the rows against the saved
+    single-device results, then replay one add and one delete and hold
+    the refresh. Prints one ``MULTIHOST_CHILD_JSON:`` line and saves its
+    rows to ``root/rows<rank>.npz``."""
+    import torch.distributed as dist
+
+    from classmate_rag_tpu_torch.index.catalog import Catalog
+    from classmate_rag_tpu_torch.index.store import IndexStore
+    from classmate_rag_tpu_torch.ops import attention as tatt
+    from classmate_rag_tpu_torch.ops import encoder_fused as tef
+    from classmate_rag_tpu_torch.ops import topk as ttopk
+    from classmate_rag_tpu_torch.parallel import ShardedHybridIndex, multihost
+
+    report: dict = {"rank": rank}
+    t0 = time.perf_counter()
+    multihost.initialize(addr, MH_RANKS, rank, backend="gloo",
+                         timeout_s=MH_TIMEOUT_S)
+    check(multihost.process_count() == MH_RANKS, "multihost: no group")
+    report["init_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    catalog = Catalog.load_or_create(root / "bm25")
+    store = IndexStore.load_or_create(DIM, root / "dense", catalog,
+                                      slab_rows=4096, terms_per_chunk=128,
+                                      device=SHARD_DEVICE)
+    check(len(store) == CHUNKS, f"multihost: loaded {len(store)} chunks")
+    report["load_s"] = time.perf_counter() - t0
+    saved = np.load(root / "queries.npz")
+    meta = json.loads((root / "terms.json").read_text())
+    q, terms, where = saved["q"], meta["terms"], meta["where"]
+    runs = [(q[i:i + BATCH], terms[i:i + BATCH], None)
+            for i in range(0, len(q), BATCH)]
+    runs.append((q[:BATCH], terms[:BATCH], where))
+    wants = [[torch.from_numpy(saved[f][i]) for f in (
+        "rows", "fused", "vec_dist", "bm25_score")] for i in range(len(runs))]
+    knobs = dict(k_vector=K, k_bm25=K, top_k=K, pool=POOL)
+
+    t0 = time.perf_counter()
+    mesh = multihost.process_corpus_mesh([SHARD_DEVICE] * MH_SHARDS)
+    engine = ShardedHybridIndex(store, mesh, **knobs)
+    torch.cuda.synchronize()
+    report["build_s"] = time.perf_counter() - t0
+    check(engine._shards.owned == [MH_SHARDS * rank + j
+                                   for j in range(MH_SHARDS)],
+          f"multihost: rank {rank} owns {engine._shards.owned}")
+    engine.query_batch(*runs[0], **knobs).rows.cpu()     # first use: warm
+
+    # The main path: every count 0 just before, read just after.
+    counts = Counts(ttopk, tef, tatt)
+    counts.reset()
+    outs, walls, moved = [], [], []
+    for qb, tb, w in runs:
+        before = engine.bytes_exchanged_total
+        t0 = time.perf_counter()
+        out = engine.query_batch(qb, tb, w, **knobs)
+        out.rows.cpu()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        moved.append(engine.bytes_exchanged_total - before)
+        outs.append(out)
+    launches = counts.read()
+    for name in ("topk_scan", "topk_merge"):
+        check(launches[name] == MH_SHARDS * len(runs),
+              f"multihost: {name} launches {launches[name]} != "
+              f"{MH_SHARDS * len(runs)}")
+    cmp = [compare_engine(o, w) for o, w in zip(outs, wants)]
+    n_equal = sum(c["rows_equal"] for c in cmp)
+    n_total = sum(c["queries"] for c in cmp)
+    check(n_equal / n_total >= ROWS_AGREE_MIN,
+          f"multihost: rows equal one device on {n_equal}/{n_total}")
+    worst = max(c["max_score_diff"] for c in cmp)
+    check(worst <= STEP_TOL, f"multihost: scores differ by {worst}")
+    warm = []
+    for qb, tb, w in runs[:-1]:
+        t0 = time.perf_counter()
+        engine.query_batch(qb, tb, w, **knobs).rows.cpu()
+        warm.append((time.perf_counter() - t0) * 1e3)
+
+    # Both ranks replay the same add and delete (the SPMD contract).
+    base = engine.bytes_placed_total
+    rng = np.random.default_rng(11)
+    new_docs = [[word(int(i)) for i in rng.integers(0, 5000, 60)]
+                for _ in range(MH_NEW_CHUNKS)]
+    new_emb = rng.standard_normal((MH_NEW_CHUNKS, DIM)).astype(np.float32)
+    new_emb /= np.linalg.norm(new_emb, axis=1, keepdims=True)
+    store.upsert([f"mh{i}" for i in range(MH_NEW_CHUNKS)], new_emb,
+                 new_docs, [chunk_meta(i) for i in range(MH_NEW_CHUNKS)])
+    store.delete([store.ids[17]])
+    after = []
+    for qb, tb, w in (runs[1], runs[-1]):
+        t0 = time.perf_counter()
+        out = engine.query_batch(qb, tb, w, **knobs)   # drains the journal
+        out.rows.cpu()
+        if not after:
+            report["refresh_batch_ms"] = (time.perf_counter() - t0) * 1e3
+            delta = engine.bytes_placed_last_refresh
+        after.append((out, store.hybrid_topk_batch(qb, tb, w, **knobs)))
+    check(0 < delta < base / 2,
+          f"multihost: the refresh moved {delta} B of {base}")
+    check(engine.full_lexical_rebuilds == 0,
+          "multihost: a small mutation rebuilt the whole split layout")
+    deltas = multihost.process_allgather(np.asarray([delta], np.int64))
+    check(int(deltas.min()) == int(deltas.max()),
+          f"multihost: ranks moved {deltas.ravel().tolist()} B")
+    cmp_after = [compare_engine(o, w) for o, w in after]
+    check(all(c["rows_equal"] / c["queries"] >= ROWS_AGREE_MIN
+              for c in cmp_after), f"multihost: rows after the mutations")
+    check(17 not in after[0][0].rows.cpu().numpy(),
+          "multihost: the deleted chunk came back")
+    np.savez(root / f"rows{rank}.npz",
+             rows=np.stack([o.rows.cpu().numpy() for o in outs]),
+             after=np.stack([o.rows.cpu().numpy() for o, _w in after]))
+    report.update({
+        "launches": launches, "batches": len(runs),
+        "rows_equal_one_device": [n_equal, n_total],
+        "differing": [d for c in cmp for d in c["differing"]],
+        "max_score_diff": worst, "batch_wall_ms": walls,
+        "warm_batch_wall_ms": warm,
+        "warm_batch_ms": statistics.median(warm),
+        "bytes_exchanged_a_batch": moved,
+        "bytes_placed_base": base, "bytes_placed_last_refresh": delta,
+        "full_lexical_rebuilds": engine.full_lexical_rebuilds,
+        "rows_equal_after_mutations": [c["rows_equal"] for c in cmp_after],
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+    })
+    dist.barrier()
+    dist.destroy_process_group()
+    print("MULTIHOST_CHILD_JSON:" + json.dumps(report), flush=True)
+    return 0
+
+
+def multihost_phase(root: Path, sharded: dict, save_s: float) -> dict:
+    """Start the two ranks on the saved store, wait for both (each under
+    the deadline; a rank that hangs is killed and the phase fails), and
+    hold their results against each other."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        addr = f"tcp://127.0.0.1:{sock.getsockname()[1]}"
+    t0 = time.perf_counter()
+    logs = [(root / f"child{r}.out", root / f"child{r}.err")
+            for r in range(MH_RANKS)]
+    procs = []
+    try:
+        for r, (out, err) in enumerate(logs):
+            with out.open("w") as fo, err.open("w") as fe:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     "--multihost-child", str(r), str(root), addr],
+                    stdout=fo, stderr=fe))
+        deadline = time.perf_counter() + MH_CHILD_S
+        for p in procs:
+            p.communicate(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"multihost: a rank passed {MH_CHILD_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    child_s = time.perf_counter() - t0
+    reports = []
+    for r, (p, (out, err)) in enumerate(zip(procs, logs)):
+        text = out.read_text()
+        found = [ln for ln in text.splitlines()
+                 if ln.startswith("MULTIHOST_CHILD_JSON:")]
+        check(p.returncode == 0 and len(found) == 1,
+              f"multihost rank {r} failed (rc={p.returncode}):\n"
+              f"{text[-2000:]}\n{err.read_text()[-3000:]}")
+        reports.append(json.loads(found[0].split(":", 1)[1]))
+    ranks = [np.load(root / f"rows{r}.npz") for r in range(MH_RANKS)]
+    for key in ("rows", "after"):
+        check(all(np.array_equal(ranks[0][key], x[key]) for x in ranks[1:]),
+              f"multihost: ranks return different {key}")
+    line = {
+        "phase": "multihost", "ranks": MH_RANKS,
+        "shards_per_rank": MH_SHARDS, "devices": [SHARD_DEVICE] * MH_RANKS,
+        "backend": "gloo",
+        "nccl": "unverified: NCCL refuses two ranks on one card, so the "
+                "ranks share it over gloo",
+        "chunks": CHUNKS, "batch": BATCH, "rows_equal_across_ranks": True,
+        "save_s": save_s, "child_s": child_s, "ranks_report": reports,
+        "warm_batch_ms": [x["warm_batch_ms"] for x in reports],
+        "phase12_warm_batch_ms": sharded["warm_batch_ms"],
+        "bytes_exchanged_a_batch": [x["bytes_exchanged_a_batch"]
+                                    for x in reports],
+        "launches_a_batch": [{k: v / x["batches"] for k, v in
+                              x["launches"].items()
+                              if k in ("topk_scan", "topk_merge")}
+                             for x in reports],
+        "nvidia_smi": smi_line(),
+    }
+    emit(line)
+    return line
+
+
+# ---------------------------------------------------------------------------
+# The int8 scan with exact rescore (phase 15), against topk_scan
+# ---------------------------------------------------------------------------
+
+INT8_SIZES = (262_144, 1_048_576)
+INT8_POOL = 64
+INT8_CPU_QUERIES = 16       # queries held against the port's CPU version
+INT8_TIE = 1e-5             # card vs CPU: differing picks' scores this close
+
+
+def int8_phase(ttopk, store, q0, peaks) -> dict:
+    """ops/quant.py's topk_int8_rescore at N 262,144 (the slice store)
+    and 1,048,576 (unit rows made on the card), d 768, Q 256, pool 64,
+    k 8: the card against the port's CPU version on a subset of queries,
+    set recall@8 against topk_scan's exact top-8, its time beside
+    topk_scan's and beside its own bound, peak memory."""
+    from classmate_rag_tpu_torch.ops.quant import (
+        int8_scores,
+        quantize_queries,
+        quantize_rows,
+        topk_int8_rescore,
+    )
+
+    bw, int8_peak = peaks[0], peaks[3]
+    g = torch.Generator(device="cuda").manual_seed(15)
+    parts = []
+    for n in INT8_SIZES:
+        if n == store.capacity:
+            host = store.emb.astype(np.float32)
+            emb16 = store._sync_device()["emb"]
+            bias = store._mask_bias(None)
+            q = q0
+        else:
+            big = torch.randn(n, DIM, device="cuda", generator=g)
+            big = big / big.norm(dim=1, keepdim=True)
+            host = big.cpu().numpy()
+            emb16 = big.to(torch.bfloat16)
+            del big
+            q = emb16[:: n // BATCH][:BATCH].float()
+            q = q + 0.25 * torch.randn(q.shape, device="cuda", generator=g)
+            q = (q / q.norm(dim=1, keepdim=True)).contiguous()
+            bias = torch.zeros(n, device="cuda")
+            bias[torch.rand(n, device="cuda", generator=g) < 0.1] = (
+                ttopk.NEG_INF)
+        t0 = time.perf_counter()
+        e8_host, sc_host = quantize_rows(host)
+        quant_s = time.perf_counter() - t0
+        del host
+        e8, sc = torch.from_numpy(e8_host).cuda(), torch.from_numpy(
+            sc_host).cuda()
+
+        def run():
+            return topk_int8_rescore(e8, sc, emb16, q, bias, K,
+                                     rescore_pool=INT8_POOL)
+
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        vals, rows = run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base_mem
+
+        sub = slice(0, INT8_CPU_QUERIES)
+        cv, cr = topk_int8_rescore(e8.cpu(), sc.cpu(), emb16.cpu(),
+                                   q[sub].cpu(), bias.cpu(), K,
+                                   rescore_pool=INT8_POOL)
+        gv, gr = vals[sub].cpu(), rows[sub].cpu()
+        differ = gr != cr
+        err = (gv - cv).abs().max().item()
+        check(bool((~differ | ((gv - cv).abs() <= INT8_TIE)).all())
+              and err <= INT8_TIE,
+              f"int8 N {n}: card vs CPU beyond a near-tie (max |d| {err})")
+
+        _ev, er = ttopk.masked_topk(emb16, q, bias, K)
+        exact = er.cpu().numpy()
+        got = rows.cpu().numpy()
+        recall = float(np.mean([
+            len(set(got[i][got[i] >= 0]) & set(exact[i][exact[i] >= 0]))
+            / max(int((exact[i] >= 0).sum()), 1) for i in range(len(got))]))
+
+        q_i8, _q_scale = quantize_queries(q)
+        nq = q.shape[0]
+        bytes_moved = (n * DIM + n * 4 + n * 4 + nq * DIM * 4
+                       + nq * INT8_POOL * DIM * 2 + nq * K * 8)
+        ops = 2.0 * nq * n * DIM
+        t_bytes, t_ops = bytes_moved / bw * 1e3, ops / int8_peak * 1e3
+        parts.append({
+            "N": n, "d": DIM, "Q": nq, "pool": INT8_POOL, "k": K,
+            "ms": time_ms(run, reps=10),
+            "stage1_int_mm_ms": time_ms(lambda: int8_scores(q_i8, e8)),
+            "topk_scan_k8_ms": time_ms(
+                lambda: ttopk.masked_topk(emb16, q, bias, K)),
+            "topk_scan_k64_ms": time_ms(
+                lambda: ttopk.masked_topk(emb16, q, bias, INT8_POOL)),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": bytes_moved, "ops": ops,
+            "recall_at_8_vs_topk_scan": recall,
+            "cpu_queries": INT8_CPU_QUERIES,
+            "rows_equal_cpu": int((~differ).all(dim=1).sum()),
+            "max_abs_err_cpu": err,
+            "peak_memory_bytes": peak, "quantize_rows_s": quant_s,
+        })
+        del e8, sc, emb16, q, bias, vals, rows
+        torch.cuda.empty_cache()
+    line = {"phase": "int8", "parts": parts, "nvidia_smi": smi_line()}
+    emit(line)
+    return line
 
 
 # ---------------------------------------------------------------------------
@@ -1593,6 +1980,7 @@ def product_child(root: Path, profile_path) -> int:
     rt.warmup_thread.join()
     report["ready_s"] = time.perf_counter() - t0
     report["after_warmup"] = counters(rt.store)
+    report["native"] = native_part(rt)
 
     rng = np.random.default_rng(7)
     vocab = [word(i) for i in range(5000)]
@@ -1685,6 +2073,9 @@ def product_child(root: Path, profile_path) -> int:
     report["persist_rewrote_base"] = rewrote
     check(not rewrote, "product: the persist rewrote a base file")
     check(added.chunk_ids, "product: the new document gave no chunk")
+    check(rt.store.packs_natively,
+          "product: the add packed its rows on the Python path")
+    report["native"]["packed_the_add"] = True
 
     # ---- asks after the add.
     lat = []
@@ -1804,6 +2195,52 @@ def product_child(root: Path, profile_path) -> int:
     emit(product_decoder(question))
     print("PRODUCT_CHILD_JSON:" + json.dumps(report), flush=True)
     return 0
+
+
+NATIVE_CHUNKS = 20_000   # chunks tokenized and packed both ways
+
+
+def native_part(rt) -> dict:
+    """The C++ tokenizer and packer (native/) loaded, and equal to the
+    Python path on the first NATIVE_CHUNKS chunks of the persisted
+    corpus: the same tokens, the same packed arrays and vocabulary; the
+    seconds each way."""
+    from classmate_rag_tpu_torch import native
+    from classmate_rag_tpu_torch.index.lexical import pack_tokens, tokenize_py
+
+    tok = native.get_native_tokenizer()
+    check(tok is not None, "product: the native library did not load")
+    texts = [rt.catalog.get(cid).text
+             for cid in rt.store.ids[:NATIVE_CHUNKS]]
+    secs = {}
+    t0 = time.perf_counter()
+    nat = [tok.tokenize(t, "en") for t in texts]
+    secs["tokenize_native"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = [tokenize_py(t, "en") for t in texts]
+    secs["tokenize_python"] = time.perf_counter() - t0
+    check(nat == py, "native: tokens differ from the Python path's")
+    packer = native.make_native_packer()
+    check(packer is not None, "native: no packer")
+    vocab_n, vocab_p = {}, {}
+    t0 = time.perf_counter()
+    got = packer.pack_batch(nat, vocab_n, PRODUCT_TERMS)
+    secs["pack_native"] = time.perf_counter() - t0
+    check(got is not None, "native: the packer refused the batch")
+    t0 = time.perf_counter()
+    want = [np.empty((len(py), PRODUCT_TERMS), np.int32),
+            np.empty((len(py), PRODUCT_TERMS), np.uint8),
+            np.empty(len(py), np.float32)]
+    for i, tokens in enumerate(py):
+        want[0][i], want[1][i], want[2][i] = pack_tokens(
+            tokens, vocab_p, PRODUCT_TERMS)
+    secs["pack_python"] = time.perf_counter() - t0
+    check(all(np.array_equal(g, w) for g, w in zip(got, want))
+          and vocab_n == vocab_p, "native: packed arrays differ")
+    return {"loaded": True, "library": native.lib_path().name,
+            "chunks": len(texts), "cut": f"{CHUNKS} -> {len(texts)} chunks",
+            "tokens": sum(map(len, py)), "vocab": len(vocab_n),
+            "seconds": secs}
 
 
 def product_decoder(question) -> dict:
@@ -2627,7 +3064,7 @@ def flash_bwd_kernels(tatt, peaks):
     (32, 128) rows of both kernels and every shape's."""
     import torch.nn.functional as F
 
-    bw, bf16_peak, _f32 = peaks
+    bw, bf16_peak, _f32, _int8_peak = peaks
     nh, hd, scale = 12, 64, 0.125
     h = nh * hd
     rng = np.random.default_rng(13)
@@ -3788,6 +4225,10 @@ def main() -> int:
                          "persisted index in DIR (bm25/, dense/)")
     ap.add_argument("--decode-child", action="store_true",
                     help="run only the decode phase's child")
+    ap.add_argument("--multihost-child", nargs=3,
+                    metavar=("RANK", "DIR", "ADDR"),
+                    help="run one rank of the multihost phase against the "
+                         "store saved in DIR, joining the group at ADDR")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3798,6 +4239,9 @@ def main() -> int:
         return product_child(Path(args.product_child), args.profile)
     if args.decode_child:
         return decode_child()
+    if args.multihost_child:
+        rank, root, addr = args.multihost_child
+        return multihost_child(int(rank), Path(root), addr)
 
     from classmate_rag_tpu_torch.embeddings.hashing import HashingEmbedder
     from classmate_rag_tpu_torch.index.catalog import Catalog, CatalogEntry
@@ -3810,17 +4254,22 @@ def main() -> int:
         hybrid_query_step_split,
     )
     from classmate_rag_tpu_torch.retrieval.hybrid import HybridRetriever
+    from classmate_rag_tpu_torch.utils.profiling import Throughput
 
     # ---- 1. device ---------------------------------------------------
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
     peak_key, peaks = peaks_for(kind)
+    detected = Throughput(1.0).report()["chip"]
+    check(detected == peak_key, f"profiling detects {detected!r}, the "
+          f"card is {peak_key!r}")
     t0 = time.perf_counter()
     ptxas = _build.build_all()
     build_s = time.perf_counter() - t0
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "peaks_of": peak_key,
+          "profiling_chip": detected,
           "build_s": build_s,
           "ptxas": {n: [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]
@@ -3930,6 +4379,13 @@ def main() -> int:
         emit(profile_batch(lambda: run_batch(batches[2]).rows.cpu(),
                            args.profile, warm_wall))
 
+    # ---- phase 14's input: the store as phase 3 left it -----------------
+    t0 = time.perf_counter()
+    mh_dir = tempfile.TemporaryDirectory()
+    multihost_save(Path(mh_dir.name), store, docs, batches, outs,
+                   {"course": chunk_meta(5)["course"]}, knobs)
+    mh_save_s = time.perf_counter() - t0
+
     # ---- 4. approx route ------------------------------------------------
     store.select = "approx"
     check(store.select_mode == "approx", "approx route not taken")
@@ -3996,17 +4452,24 @@ def main() -> int:
           "filter": {"course": course}})
     del cpu_store, gpu_ret, cpu_ret      # the catalog serves phase 12
 
+    # ---- 15. int8 --------------------------------------------------------
+    int8_phase(ttopk, store, q0, peaks)
+
     # ---- 6. encoder, 7. ingest + ask --------------------------------------
     enc, enc_launches, enc_tree = encoder_phase(rng, docs, counts, peaks,
                                                 args.profile)
     ingest_ask_phase(enc, docs, rng, counts, knobs)
 
     # ---- 12. sharded: on the slice store, so it runs here -----------------
-    sharded_phase(store, catalog, batches, oracle_sets, questions, enc,
-                  enc_tree, docs, rng, counts, knobs)
+    sharded = sharded_phase(store, catalog, batches, oracle_sets, questions,
+                            enc, enc_tree, docs, rng, counts, knobs)
     del enc, store, catalog
     catalog_dir.cleanup()
     torch.cuda.empty_cache()
+
+    # ---- 14. multihost ---------------------------------------------------
+    multihost_phase(Path(mh_dir.name), sharded, mh_save_s)
+    mh_dir.cleanup()
 
     # ---- 8. product ------------------------------------------------------
     product_phase(docs, emb, counts, args.profile)

@@ -27,7 +27,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 
 from classmate_rag_tpu_torch.index.catalog import CatalogEntry
-from classmate_rag_tpu_torch.index.lexical import tokenize_py
+from classmate_rag_tpu_torch.index.lexical import tokenize
 from classmate_rag_tpu_torch.pipeline.runtime import Runtime, get_runtime
 
 
@@ -118,7 +118,7 @@ def restore_dump(
         ids = [c for (c, _t, _m) in batch]
         texts = [t for (_c, t, _m) in batch]
         metas = [m for (_c, _t, m) in batch]
-        tokens = [tokenize_py(t, m.get("language")) for t, m in zip(texts, metas)]
+        tokens = [tokenize(t, m.get("language")) for t, m in zip(texts, metas)]
         embeddings = rt.embedder.encode_passages(texts)
         rt.store.upsert(ids, embeddings, tokens, metas)
         for i, cid in enumerate(ids):

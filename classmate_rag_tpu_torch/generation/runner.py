@@ -33,7 +33,7 @@ import torch
 
 from classmate_rag_tpu_torch.config import Config, load_config
 from classmate_rag_tpu_torch.device import DeviceLike, resolve_device
-from classmate_rag_tpu_torch.index.lexical import tokenize_py
+from classmate_rag_tpu_torch.index.lexical import tokenize
 from classmate_rag_tpu_torch.utils.lang import detect_lang_tag
 
 logger = logging.getLogger(__name__)
@@ -100,11 +100,11 @@ class ExtractiveRunner:
     def answer_grounded(self, question: str, ctx: str,
                         max_sentences: int = 3) -> str:
         lang = detect_lang_tag(question)
-        q_terms = set(tokenize_py(question, lang))
+        q_terms = set(tokenize(question, lang))
         scored: List[tuple[float, int, int, str]] = []
         for block_no, text in self._split_blocks(ctx):
             for s_idx, sent in enumerate(self._sentences(text)):
-                s_terms = set(tokenize_py(sent, lang))
+                s_terms = set(tokenize(sent, lang))
                 if not s_terms:
                     continue
                 overlap = len(q_terms & s_terms)

@@ -19,6 +19,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from classmate_rag_tpu_torch import native as _native
 from classmate_rag_tpu_torch.utils.numerics import round_up as _round_up
 
 K1 = 1.5
@@ -60,6 +61,16 @@ def tokenize_py(text: str, lang: Optional[str] = None) -> List[str]:
         t for t in (m.group(0).lower() for m in _TOKEN_RE.finditer(text or ""))
         if len(t) > 1 and t not in sw
     ]
+
+
+def tokenize(text: str, lang: Optional[str] = None) -> List[str]:
+    """Lowercased unicode-letter tokens minus stopwords and 1-char tokens:
+    the C++ tokenizer (``native/``) when its library loads, else
+    ``tokenize_py``, with identical results either way."""
+    tok = _native.get_native_tokenizer()
+    if tok is not None:
+        return tok.tokenize(text, lang)
+    return tokenize_py(text, lang)
 
 
 def pack_tokens(

@@ -71,6 +71,7 @@ from classmate_rag_tpu_torch.metadata.validation import (
     slug_tag,
     tags_from_meta,
 )
+from classmate_rag_tpu_torch.native import make_native_packer
 from classmate_rag_tpu_torch.ops.hybrid_step import (
     HybridBatchResult,
     hybrid_query_step_split,
@@ -231,6 +232,14 @@ class IndexStore:
         self._persist_vocab = 0  # vocab size at last persist (delta base)
         self._delta_seq = 0
         self._need_full_save = False
+        # Native batch packer (the C++ interner), made at the first pack.
+        # Once the Python path interns a term the native side does not
+        # know, native packing stays off for this store (the two
+        # interners must give the same ids).
+        self._packer = None
+        self._packer_ok = True
+        # Which path packed the latest rows (None before the first pack).
+        self._last_pack_native: Optional[bool] = None
 
     # ------------------------------------------------------------------
     # Host state carried across packages
@@ -332,9 +341,38 @@ class IndexStore:
     # Mutation
     # ------------------------------------------------------------------
 
+    @property
+    def packs_natively(self) -> bool:
+        """Whether the latest rows were packed by the C++ packer
+        (``native/``); False before the first pack and when they took
+        the Python path, whose results are the same."""
+        return bool(self._last_pack_native)
+
     def _pack_rows(self, tokens_list: Sequence[Sequence[str]]):
         """Batch (term_ids [B, W] i32, tfs [B, W] u8, doc_len [B] f32),
-        interning new terms in first-seen order."""
+        interning new terms in first-seen order: the C++ batch packer
+        when it loads (the same ids and arrays), else pack_tokens per
+        row."""
+        if self._packer_ok and self._packer is None:
+            self._packer = make_native_packer()
+            if self._packer is None:
+                self._packer_ok = False
+            elif self.vocab and not self._packer.import_vocab(self.vocab):
+                # A fresh packer over a restored vocab: seed the native
+                # interner; on failure stay on the Python path.
+                self._packer_ok = False
+        if (
+            self._packer_ok
+            and len(self.vocab) == self._packer.vocab_size()
+        ):
+            out = self._packer.pack_batch(
+                tokens_list, self.vocab, self.term_width
+            )
+            if out is not None:
+                self._last_pack_native = True
+                return out
+            self._packer_ok = False  # separator-bearing tokens: stay Python
+        self._last_pack_native = False
         b = len(tokens_list)
         term_ids = np.empty((b, self.term_width), dtype=np.int32)
         tfs = np.empty((b, self.term_width), dtype=np.uint8)

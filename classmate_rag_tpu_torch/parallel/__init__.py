@@ -1,10 +1,12 @@
-"""Multi-device paths over meshes of ``torch.device``s driven from one
-process (port of the JAX package's ``parallel/``): corpus-sharded
-serving, the ("data", "model") training mesh and dp×tp decode.
-``multihost`` is not ported yet (ROADMAP §1)."""
+"""Multi-device paths (port of the JAX package's ``parallel/``):
+corpus-sharded serving, the ("data", "model") training mesh and dp×tp
+decode over meshes of ``torch.device``s driven from one process, and
+``multihost``: the process group, and meshes over processes
+(``RankDevice`` entries) that the sharded engine also serves over."""
 
 from classmate_rag_tpu_torch.parallel.mesh import (
     DeviceMesh,
+    RankDevice,
     corpus_mesh,
     local_devices,
     training_mesh,
@@ -38,6 +40,7 @@ def __getattr__(name):
 
 __all__ = [
     "DeviceMesh",
+    "RankDevice",
     "ShardedHybridIndex",
     "ShardedHybridResult",
     "auto_mesh_for",

@@ -14,15 +14,27 @@ process as well:
 Repeats are allowed: four logical shards (or ranks) on ``cuda:0`` run
 the same code as one on each of four cards, with local copies in place
 of peer copies.
+
+A mesh may also span processes (``parallel/multihost.py``): its entries
+are then ``RankDevice``s, each naming the process that owns it.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
 from classmate_rag_tpu_torch.device import DeviceLike, resolve_device
+
+
+class RankDevice(NamedTuple):
+    """One device of a mesh over processes: slot ``local`` of process
+    ``rank``'s local devices, which is ``device`` on that process."""
+
+    rank: int
+    local: int
+    device: torch.device
 
 
 def local_devices(device: DeviceLike = None) -> List[torch.device]:
@@ -37,17 +49,20 @@ def local_devices(device: DeviceLike = None) -> List[torch.device]:
 
 
 def corpus_mesh(n_devices: int = 0,
-                devices: Optional[Sequence[DeviceLike]] = None,
-                ) -> List[torch.device]:
+                devices: Optional[Sequence[Union[DeviceLike, RankDevice]]]
+                = None,
+                ) -> List[Union[torch.device, RankDevice]]:
     """The shard axis: ``devices`` (default: the CUDA cards; raises
-    without CUDA), cut to the first ``n_devices`` when that is set."""
+    without CUDA), cut to the first ``n_devices`` when that is set.
+    ``RankDevice`` entries (a mesh over processes) stay as they are."""
     devs = (list(devices) if devices is not None
             else local_devices(resolve_device(None)))
     if n_devices:
         devs = devs[:n_devices]
     if not devs:
         raise ValueError("a corpus mesh needs at least one device")
-    return [torch.device(d) for d in devs]
+    return [d if isinstance(d, RankDevice) else torch.device(d)
+            for d in devs]
 
 
 class DeviceMesh:

@@ -31,9 +31,19 @@ changed, with in-place ``index_copy_`` on each shard:
 
 ``bytes_placed_total`` counts the bytes of every host array handed to a
 placement or scatter (query inputs included), the JAX package's rule, so
-tests and operators can check the O(delta) property. The port places the
-f16 embedding master once and derives the bf16 scan slab on the device,
-where the JAX package places it twice.
+tests and operators can check the O(delta) property. The port places
+the f16 embedding master once and derives the bf16 scan slab on the
+device, where the JAX package places it twice.
+
+Across processes (a mesh of ``RankDevice``s from
+``multihost.process_corpus_mesh``) the JAX package's SPMD contract
+holds: every process holds the same host store, replays the same
+mutations and calls ``query_batch`` with identical inputs in the same
+order. Each process places, scatters and scans only the shards it owns
+(``bytes_placed_*`` still counts the full host arrays, as JAX does on
+every process); the shards' results meet on every process through an
+``all_gather`` (``bytes_exchanged_total``), and every process returns
+the same rows.
 """
 
 from __future__ import annotations
@@ -62,8 +72,8 @@ from classmate_rag_tpu_torch.index.store import (
     device_col_set,
     device_row_set,
 )
-from classmate_rag_tpu_torch.parallel.mesh import corpus_mesh
 from classmate_rag_tpu_torch.parallel.sharded import (
+    MeshShards,
     ShardedHybridResult,
     make_sharded_split_hybrid_fn,
 )
@@ -74,7 +84,8 @@ _SCATTER_FRACTION = 0.25
 
 class ShardedHybridIndex:
     """Sharded view of an IndexStore over a list of devices (``mesh``,
-    one per shard; repeats allowed)."""
+    one per shard; repeats allowed), or over ``RankDevice``s spanning
+    processes."""
 
     def __init__(
         self,
@@ -93,8 +104,9 @@ class ShardedHybridIndex:
         max_query_terms: int = 32,
     ) -> None:
         self.store = store
-        self.mesh = corpus_mesh(devices=mesh)
-        self.n_shards = len(self.mesh)
+        self._shards = MeshShards(mesh)
+        self.mesh = self._shards.devices
+        self.n_shards = self._shards.n_shards
         self.max_query_terms = max_query_terms
         self._defaults = dict(
             k_vector=k_vector, k_bm25=k_bm25, top_k=top_k, pool=pool,
@@ -112,7 +124,7 @@ class ShardedHybridIndex:
         self.bytes_placed_last_refresh = 0
         self.full_lexical_rebuilds = -1   # _build counts the first one
         self._df_gen = 0
-        if any(d.type == "cuda" for d in self.mesh):
+        if any(d.type == "cuda" for _s, d in self._shards.local):
             pin_fp32_matmul()
         self._build()
 
@@ -152,7 +164,8 @@ class ShardedHybridIndex:
         self._df_gen += 1
         emb16 = self._place(store.emb)
         self._dev = {
-            "emb": [e.to(torch.bfloat16) for e in emb16],
+            "emb": [None if e is None else e.to(torch.bfloat16)
+                    for e in emb16],
             # f16 rescore master on the same shards; None when the
             # store does not rescore.
             "emb16": emb16 if store.rescore_enabled else None,
@@ -200,22 +213,24 @@ class ShardedHybridIndex:
             for _ in range(self.n_shards)
         ]
 
-    def _place(self, arr, dim: int = 0) -> List[torch.Tensor]:
+    def _place(self, arr, dim: int = 0) -> List[Optional[torch.Tensor]]:
         """Host array → one equal block per shard along ``dim``, each a
         copy on its shard's device (the blocks are updated in place and
-        must never alias the store's host masters)."""
+        must never alias the store's host masters); None for a shard
+        another process owns."""
         arr = np.asarray(arr)
         self.bytes_placed_total += int(arr.nbytes)
-        return [
-            torch.from_numpy(np.ascontiguousarray(block)).to(dev, copy=True)
-            for block, dev in zip(
-                np.split(arr, self.n_shards, axis=dim), self.mesh
-            )
-        ]
+        blocks = np.split(arr, self.n_shards, axis=dim)
+        out: List[Optional[torch.Tensor]] = [None] * self.n_shards
+        for s, dev in self._shards.local:
+            out[s] = torch.from_numpy(
+                np.ascontiguousarray(blocks[s])).to(dev, copy=True)
+        return out
 
     def _place_postings(self, arr: np.ndarray) -> List[torch.Tensor]:
         """[S, Pmax] per-shard postings → one [Pmax] block per shard."""
-        return [b.reshape(-1) for b in self._place(arr)]
+        return [None if b is None else b.reshape(-1)
+                for b in self._place(arr)]
 
     # ------------------------------------------------------------------
     # Incremental refresh
@@ -337,7 +352,7 @@ class ShardedHybridIndex:
             plans.append(plan)
 
         # All shards feasible: apply. Head columns first (frozen lut).
-        c_pad = self._dev["tf_head"][0].shape[0]
+        c_pad = self._dev["tf_head"][self._shards.owned[0]].shape[0]
         cols = head_tf_columns(
             lut, c_pad, store.term_ids[rows], store.tfs[rows]
         )
@@ -453,7 +468,7 @@ class ShardedHybridIndex:
         shard_of = rows // n_local
         for s, t in enumerate(self._dev[name]):
             mine = shard_of == s
-            if mine.any():
+            if t is not None and mine.any():
                 device_row_set(t, rows[mine] - s * n_local, vals[mine])
 
     def _scatter_cols(self, name: str, cols, vals: np.ndarray) -> None:
@@ -465,7 +480,7 @@ class ShardedHybridIndex:
         shard_of = cols // n_local
         for s, t in enumerate(self._dev[name]):
             mine = shard_of == s
-            if mine.any():
+            if t is not None and mine.any():
                 device_col_set(t, cols[mine] - s * n_local, vals[:, mine])
 
     def _scatter_elems(self, name: str, shard_ids, positions,
@@ -478,7 +493,7 @@ class ShardedHybridIndex:
         self.bytes_placed_total += int(vals.nbytes) + int(positions.nbytes)
         for s, t in enumerate(self._dev[name]):
             mine = shard_ids == s
-            if mine.any():
+            if t is not None and mine.any():
                 device_row_set(t, positions[mine], vals[mine])
 
     # ------------------------------------------------------------------
@@ -519,7 +534,7 @@ class ShardedHybridIndex:
         out = np.zeros(vocab_pad + 1, np.float32)
         out[: min(len(dfh), vocab_pad)] = dfh[:vocab_pad]
         self.bytes_placed_total += int(out.nbytes)
-        placed = torch.from_numpy(out).to(self.mesh[0])
+        placed = torch.from_numpy(out).to(self._shards.merge)
         with self._lock:
             # Insert only if no invalidation raced the computation.
             if self._df_gen == gen:
@@ -548,6 +563,12 @@ class ShardedHybridIndex:
             "bytes_placed_total": self.bytes_placed_total,
         }
 
+    @property
+    def bytes_exchanged_total(self) -> int:
+        """Bytes this process received from the others' shards (0 in one
+        process)."""
+        return self._shards.bytes_exchanged
+
     def query_batch(
         self,
         query_vecs,                       # [B, d] f32 (numpy or tensor)
@@ -556,8 +577,9 @@ class ShardedHybridIndex:
         **knob_overrides: Any,
     ) -> ShardedHybridResult:
         """The hybrid step for the whole batch over the shards: rows /
-        fused / vec_dist / bm25_score [B, top_k] on the mesh's first
-        device, as ``IndexStore.hybrid_topk_batch`` returns them.
+        fused / vec_dist / bm25_score [B, top_k] on the merge device (the
+        first local shard's), as ``IndexStore.hybrid_topk_batch`` returns
+        them; the same on every process.
 
         ``knob_overrides`` (top_k, k_vector, pool, ...) override the
         constructor's defaults per call."""
@@ -619,7 +641,7 @@ class ShardedHybridIndex:
         bias = self._mask_bias_sharded(where)
         df = None if where else self._df_placed_for(vocab_pad)
         step = make_sharded_split_hybrid_fn(
-            self.mesh, r_cap=layout["r_cap"], vocab_pad=vocab_pad,
+            self._shards, r_cap=layout["r_cap"], vocab_pad=vocab_pad,
             rescore_pool=min(store.rescore_pool, store.capacity),
             select=store.select_mode, **knobs,
         )

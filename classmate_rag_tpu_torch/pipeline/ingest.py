@@ -27,7 +27,7 @@ from typing import Dict, List, Optional, Tuple
 
 from classmate_rag_tpu_torch.chunking import chunk_text
 from classmate_rag_tpu_torch.index.catalog import CatalogEntry
-from classmate_rag_tpu_torch.index.lexical import tokenize_py
+from classmate_rag_tpu_torch.index.lexical import tokenize
 from classmate_rag_tpu_torch.loaders import infer_doc_type_from_path, load_document_by_type
 from classmate_rag_tpu_torch.metadata import DocumentMetadata
 from classmate_rag_tpu_torch.metadata.schema import _SUBJECT_ALIASES
@@ -222,7 +222,7 @@ def _ingest_file(
         ids.append(cid)
         texts.append(text)
         metas.append(meta)
-        tokens_list.append(tokenize_py(text, meta.get("language")))
+        tokens_list.append(tokenize(text, meta.get("language")))
 
     if not ids:
         return IngestResult(

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from classmate_rag_tpu_torch.index.catalog import Catalog
-from classmate_rag_tpu_torch.index.lexical import tokenize_py
+from classmate_rag_tpu_torch.index.lexical import tokenize
 from classmate_rag_tpu_torch.index.store import IndexStore
 from classmate_rag_tpu_torch.ops.fusion import rrf_merge
 from classmate_rag_tpu_torch.ops.mmr import mmr_order
@@ -85,7 +85,7 @@ class HybridRetriever:
     def _bm25_branch(
         self, query: str, where: Optional[Mapping[str, Any]], k: int
     ) -> tuple[np.ndarray, np.ndarray]:
-        terms = tokenize_py(query, detect_lang_tag(query))
+        terms = tokenize(query, detect_lang_tag(query))
         if not terms:
             return (np.full(k, -1, dtype=np.int64),
                     np.zeros(k, dtype=np.float32))
@@ -160,7 +160,7 @@ class HybridRetriever:
                 [q for _i, q in live]
             ).astype(np.float32)
         q_terms = [
-            tokenize_py(q, detect_lang_tag(q)) if hybrid else []
+            tokenize(q, detect_lang_tag(q)) if hybrid else []
             for _i, q in live
         ]
         # Pad the batch to a power of two, as the reference does (its

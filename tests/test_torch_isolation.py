@@ -1,7 +1,9 @@
 """The port stands alone: it imports neither JAX (nor optax or orbax) nor
 the JAX package, nor the JAX package's command line (``cli``), with every
 module of it imported and its paths driven (the sharded engine, the
-dp×tp train step and tp decode of ``parallel/`` too), and a
+dp×tp train step and tp decode of ``parallel/`` too; the multi-process
+mesh, the native tokenizer, the int8 scan and the profiling helpers),
+and a
 default-device call without CUDA (a training mesh without devices
 too) raises instead of running on the CPU. Both checks run in a fresh interpreter."""
 
@@ -61,6 +63,38 @@ def test_port_imports_and_queries_without_jax():
         sh = ShardedHybridIndex(s, ["cpu", "cpu"])
         assert (sh.query_batch(emb[:2], [["alpha"], []]).rows
                 == out.rows).all()
+        # Multihost (a process that stays local, its mesh over
+        # processes), the native tokenizer and packer, the int8 scan,
+        # the profiling helpers.
+        from classmate_rag_tpu_torch.parallel import multihost
+        multihost.initialize()
+        sh = ShardedHybridIndex(s, multihost.process_corpus_mesh(
+            ["cpu", "cpu"]))
+        assert (sh.query_batch(emb[:2], [["alpha"], []]).rows
+                == out.rows).all()
+        assert multihost.dcn_training_mesh(["cpu"] * 4).shape == {
+            "replica": 1, "data": 1, "model": 4}
+        from classmate_rag_tpu_torch import native
+        from classmate_rag_tpu_torch.index.lexical import tokenize
+        assert tokenize("Derivatives measure change", "en") == [
+            "derivatives", "measure", "change"]
+        native.make_native_packer()
+        import torch
+        from classmate_rag_tpu_torch.ops.quant import (
+            quantize_rows, topk_int8_rescore)
+        e8, sc = quantize_rows(emb)
+        _v, r8 = topk_int8_rescore(
+            torch.from_numpy(e8), torch.from_numpy(sc),
+            torch.from_numpy(emb).bfloat16(), torch.from_numpy(emb[:2]),
+            torch.zeros(50), 4, rescore_pool=8)
+        assert r8[:, 0].tolist() == [0, 1], r8
+        import tempfile
+        from classmate_rag_tpu_torch.utils.profiling import (
+            Throughput, trace)
+        assert Throughput(1.0, 1e9, chip="h100-sxm").report()["chip"] == (
+            "h100-sxm")
+        with trace(tempfile.mkdtemp()):
+            torch.ones(4).sum()
         # The product path: runtime, ingest, ask, persist, server.
         import os, pathlib, tempfile
         root = pathlib.Path(tempfile.mkdtemp())
@@ -173,8 +207,12 @@ def test_default_device_without_cuda_raises():
         from classmate_rag_tpu_torch.cli.main import main as cli_main
         from classmate_rag_tpu_torch.parallel import (
             corpus_mesh, training_mesh)
+        from classmate_rag_tpu_torch.parallel.multihost import (
+            dcn_training_mesh, process_corpus_mesh)
         for call in (lambda: IndexStore(8), lambda: resolve_device(None),
                      lambda: corpus_mesh(), lambda: training_mesh(),
+                     lambda: process_corpus_mesh(),
+                     lambda: dcn_training_mesh(),
                      lambda: cli_main(["stats"]),
                      lambda: make_train_step(EncoderConfig.small_test()),
                      lambda: resolve_device("cuda"),

@@ -27,6 +27,9 @@ Tolerances:
   of torch's f32 sum; the LSE the forward writes for them within 1e-4
   of torch's (base 2, f32), and the forward output with it bit-equal to
   the serving forward's.
+- the int8 scan's stage 1 (``ops/quant.py``, ``torch._int_mm`` with its
+  query and width padding): int32 scores and candidates EQUAL to the
+  CPU's int32 product (exact integer sums).
 """
 
 import numpy as np
@@ -490,3 +493,29 @@ def test_flash_attn_bwd_matches_from_lse_reference(cuda, b, t, left):
         for a, g in zip(again, got):
             assert (a.float() - g.float()).abs().max().item() <= 2e-2 * (
                 g.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,d", [(5, 60), (24, 64), (40, 768)])
+def test_int8_stage1_on_the_card_equals_cpu(cuda, nq, d):
+    from classmate_rag_tpu_torch.ops.quant import (
+        int8_candidates,
+        int8_scores,
+        quantize_rows,
+    )
+
+    E = _rand(4096, d, seed=3)
+    qs = _rand(nq, d, seed=4)
+    bias = np.zeros(4096, np.float32)
+    bias[::7] = NEG_INF
+    ei8, sc = quantize_rows(E)
+    a = torch.from_numpy(ei8)
+    q8 = torch.from_numpy(np.clip(np.rint(qs * 127), -127, 127)
+                          .astype(np.int8))
+    got = int8_scores(q8.to(cuda), a.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), int8_scores(q8, a))
+    args = (torch.from_numpy(sc), torch.from_numpy(qs),
+            torch.from_numpy(bias))
+    cand = int8_candidates(a.to(cuda), *(x.to(cuda) for x in args), 64)
+    assert torch.equal(cand.cpu(), int8_candidates(a, *args, 64))
