@@ -11,7 +11,8 @@ flash attention backward kernels, the routed ask with the index's
 admin verbs through the port's command line, the corpus-sharded
 serving engine with data-parallel encode, dp×tp training and decode
 over ("data", "model") meshes of logical ranks on the one card, the
-same sharded engine served by two processes, and the int8 scan.
+same sharded engine served by two processes, the int8 scan, and the
+port's benchmark at 1,000,000 chunks.
 
     python3 chip_smoke.py            # on a machine with one NVIDIA GPU
     python3 chip_smoke.py --product-child DIR   # phase 8's child alone
@@ -199,6 +200,19 @@ Phases, one JSON line each; any failure exits non-zero with no result:
               recall@8 against topk_scan's exact top-8, its time, its
               int8 product's alone and topk_scan's at k 8 and 64 beside
               its bytes bound, peak memory.
+
+16. bench     (run last) the port's benchmark at serving scale:
+              classmate_rag_tpu_torch.bench.run_scale at 1,000,000 chunks
+              (bench.py's corpus and oracle, seed 42, d 768, terms 128 a
+              chunk; 1,024 queries in batches of 256, 4 workers, 4 timed
+              passes of >= 2 s; 64 oracle queries; the 7 filter cases at
+              16 queries; launch counts reset just before, read just
+              after): the store takes the approx route by its size,
+              recall@8 >= 0.99 against the oracle and in every filter
+              case (no row outside its subset; the two empty cases all
+              dead slots), 1 scan + 1 merge a timed batch, the wall QPS
+              at most 1.05x the device ceiling; the seconds of each part,
+              the store's device bytes.
 
 Then the kernels line ({"kernels": [...]}), the nvidia-smi line, and
 last {"ok": true, "device": {...}}. A kernel's ``ms`` (and the plain
@@ -4209,6 +4223,78 @@ def routed_phase(tree, ckpt_dir: Path, docs, counts) -> dict:
     return line
 
 
+# ---------------------------------------------------------------------------
+# 16. bench: classmate_rag_tpu_torch/bench.py's run_scale at serving scale
+# ---------------------------------------------------------------------------
+
+BENCH_CHUNKS = 1_000_000
+BENCH_ORACLE = 64          # oracle queries (bench.py's scale-3 floor)
+BENCH_FILTERED = "16"      # BENCH_FILTERED_QUERIES: bench.py's above 100k
+WALL_OVER_CEILING = 1.05   # wall QPS over the device ceiling, at most
+
+
+def bench_phase(counts) -> dict:
+    """The port's benchmark at 1,000,000 chunks on the card, held to
+    bench.py's bars: the approx route chosen by size, recall@8 against
+    the oracle unfiltered and in every filter case, 1 + 1 scan launches a
+    timed batch, and a wall QPS the card's own time can account for."""
+    import os
+
+    from classmate_rag_tpu_torch import bench
+
+    os.environ["BENCH_FILTERED_QUERIES"] = BENCH_FILTERED
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    detail = {}
+    t0 = time.perf_counter()
+    counts.reset()
+    out = bench.run_scale(BENCH_CHUNKS, n_oracle=BENCH_ORACLE,
+                          filtered_oracle=True, detail=detail)
+    launches = counts.read()
+    phase_s = time.perf_counter() - t0
+    check(detail["device"].startswith("cuda"), "bench: not on the card")
+    check(detail["select"] == "auto" and detail["select_mode"] == "approx",
+          f"bench: route {detail['select_mode']!r} (select "
+          f"{detail['select']!r}) at {BENCH_CHUNKS} chunks")
+    check(out["recall_vs_oracle@8"] >= RECALL_MIN,
+          f"bench: recall@8 {out['recall_vs_oracle@8']} < {RECALL_MIN}")
+    for name, case in out["filtered"].items():
+        # A row outside the subset scores its query 0 (16 queries: a leak
+        # alone takes the case under the bar); an empty case scores 1.0
+        # only if every slot is dead.
+        check(case["recall@8"] >= RECALL_MIN,
+              f"bench: filter case {name} recall@8 {case['recall@8']}")
+    per_batch = {k: v / detail["timed_batches"]
+                 for k, v in detail["timed_launches"].items()}
+    check(per_batch == {"topk_scan": 1.0, "topk_merge": 1.0},
+          f"bench: launches a timed batch {per_batch}")
+    check(out["value"] <= WALL_OVER_CEILING * out["device_ceiling_qps"],
+          f"bench: wall {out['value']} QPS over the device ceiling "
+          f"{out['device_ceiling_qps']}")
+    line = {"phase": "bench", "chunks": BENCH_CHUNKS,
+            "value": out["value"],
+            "device_ceiling_qps": out["device_ceiling_qps"],
+            "baseline_qps": out["baseline_qps"],
+            "vs_baseline": out["vs_baseline"],
+            "recall_vs_oracle@8": out["recall_vs_oracle@8"],
+            "recall_filtered@8": out["recall_filtered@8"],
+            "filtered": out["filtered"],
+            "n_oracle_queries": out["n_oracle_queries"],
+            "timed_pass_s": out["timed_pass_s"],
+            "select_mode": detail["select_mode"],
+            "capacity": detail["capacity"],
+            "device_timing": detail["device_timing"],
+            "timed_batches": detail["timed_batches"],
+            "launches_a_timed_batch": per_batch,
+            "launches": launches,
+            "device_bytes": detail["device_bytes"],
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "seconds": {**detail["seconds"], "phase": phase_s},
+            "nvidia_smi": smi_line()}
+    emit(line)
+    return line
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -4482,7 +4568,10 @@ def main() -> int:
         train_launches = train_kernels_and_phase(tatt, docs, counts, peaks,
                                                  Path(ckpt_dir))
         routed_phase(enc_tree, Path(ckpt_dir), docs, counts)
-    del enc_tree
+    del enc_tree, docs, emb
+
+    # ---- 16. bench ---------------------------------------------------------
+    bench_phase(counts)
 
     line = []
     for row, n in ((kern, launches["topk_scan"]),

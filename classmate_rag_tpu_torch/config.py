@@ -285,6 +285,12 @@ def load_config(reload: bool = False) -> Config:
     return cfg
 
 
+def config_as_dict(cfg: Optional[Config] = None) -> dict:
+    """``cfg``'s fields (default: ``load_config()``) as a plain dict."""
+    c = cfg or load_config()
+    return {f.name: getattr(c, f.name) for f in fields(c)}
+
+
 @dataclass(frozen=True)
 class RetrievalConfig:
     k_vector: int = 8

@@ -13,6 +13,7 @@ statistics (df, avgdl) taken over the *filtered subset* of rows.
 
 from __future__ import annotations
 
+import math
 import re
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -726,11 +727,13 @@ def bm25_split_score_core(
     col_u = u_cols.long()[:, None].expand(-1, r_cap)
     col_ok = valid_u & (col_u >= 0)
     tf_tail = torch.zeros((n, t + 1), dtype=torch.float32, device=dev)
-    # Integer tfs: the accumulated sums are exact in any order.
-    tf_tail.index_put_(
-        (torch.where(col_ok, rows_u, 0), torch.where(col_ok, col_u, t)),
-        torch.where(col_ok, tfs_u, 0.0),
-        accumulate=True,
+    # Integer tfs: the accumulated sums are exact in any order. An add
+    # into the flat view, where dead slots land in column t: on CUDA,
+    # index_put_(accumulate=True) range-checks its indices with two host
+    # reads each, and every batch would wait for the card.
+    tf_tail.view(-1).index_add_(
+        0, torch.where(col_ok, rows_u * (t + 1) + col_u, t).reshape(-1),
+        torch.where(col_ok, tfs_u, 0.0).reshape(-1),
     )
     tf_tail = tf_tail[:, :t]
     sat_tail = okapi_sat(tf_tail, doc_len[:, None], avgdl)
@@ -746,3 +749,54 @@ def bm25_split_score_core(
     ) * t_idf[None, :]
     scores = scores + _f32_matmul(w_tail, sat_tail.T, fast)
     return scores * keep[None, :]
+
+
+# ---------------------------------------------------------------------------
+# Pure-Python oracle (tests, benchmarks, tiny corpora)
+# ---------------------------------------------------------------------------
+
+def bm25_oracle_scores(
+    corpus_tokens: Sequence[Sequence[str]],
+    query_tokens: Sequence[str],
+) -> List[float]:
+    """The published BM25Okapi formula with the negative-idf ε rule, one
+    score per document, in plain Python floats: the reference the
+    tensor scorers are held against."""
+    n = len(corpus_tokens)
+    if n == 0:
+        return []
+    df: Dict[str, int] = {}
+    doc_freqs: List[Dict[str, int]] = []
+    total_len = 0
+    for doc in corpus_tokens:
+        freqs: Dict[str, int] = {}
+        for t in doc:
+            freqs[t] = freqs.get(t, 0) + 1
+        doc_freqs.append(freqs)
+        total_len += len(doc)
+        for t in freqs:
+            df[t] = df.get(t, 0) + 1
+    avgdl = total_len / n
+    idf: Dict[str, float] = {}
+    negatives = []
+    idf_sum = 0.0
+    for t, f in df.items():
+        v = math.log(n - f + 0.5) - math.log(f + 0.5)
+        idf[t] = v
+        idf_sum += v
+        if v < 0:
+            negatives.append(t)
+    avg_idf = idf_sum / len(idf) if idf else 0.0
+    for t in negatives:
+        idf[t] = EPSILON * avg_idf
+    out = []
+    for freqs, doc in zip(doc_freqs, corpus_tokens):
+        dl = len(doc)
+        s = 0.0
+        for q in query_tokens:
+            tf = freqs.get(q, 0)
+            if tf == 0 or q not in idf:
+                continue
+            s += idf[q] * tf * (K1 + 1) / (tf + K1 * (1 - B + B * dl / avgdl))
+        out.append(s)
+    return out

@@ -34,7 +34,9 @@ import json
 import logging
 import os
 import threading
+import time
 from collections import OrderedDict
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -115,6 +117,13 @@ def device_col_set(t: torch.Tensor, cols, vals: np.ndarray) -> None:
     idx = torch.as_tensor(np.asarray(cols, np.int64), device=t.device)
     src = torch.from_numpy(np.ascontiguousarray(vals)).to(t.device)
     t.index_copy_(1, idx, src.to(t.dtype))
+
+
+@dataclass
+class SearchResult:
+    row: int
+    id: str
+    score: float
 
 
 class IndexStore:
@@ -240,6 +249,9 @@ class IndexStore:
         self._packer_ok = True
         # Which path packed the latest rows (None before the first pack).
         self._last_pack_native: Optional[bool] = None
+        # How device_seconds_per_batch timed its last call: "held stream",
+        # "profiler" or "wall" (None before the first).
+        self.device_timing: Optional[str] = None
 
     # ------------------------------------------------------------------
     # Host state carried across packages
@@ -1128,6 +1140,91 @@ class IndexStore:
             select=self.select_mode,
         )
         return args, kwargs
+
+    def device_seconds_per_batch(
+        self,
+        query_vecs,                              # [B, d] f32
+        query_terms_list: Sequence[Sequence[str]],
+        where: Optional[Mapping[str, Any]] = None,
+        *,
+        iters: int = 16,
+        **knobs: Any,
+    ) -> float:
+        """The device's seconds for one fused batch, with the host out of
+        the way (bench.py reports ``B / this`` as ``device_ceiling_qps``
+        beside its wall QPS). The batch's inputs are made once
+        (``hybrid_step_inputs``); ``iters`` calls of
+        ``hybrid_query_step_split`` then run on them.
+
+        On CUDA, before each call a spin kernel (``torch.cuda._sleep``)
+        holds the stream while the host queues the call between two CUDA
+        events, so the card runs the call's kernels back to back; one
+        host fetch of the last call's rows ends the timing, and the
+        result is the mean of the event spans. Each call gets its own
+        spin, so the host never has more than one call's few hundred
+        launches queued ahead of the card. Eager PyTorch runs every
+        call it is given, so nothing needs perturbing from call to call
+        (the JAX package threads a carry through its ``lax.scan`` so that
+        XLA cannot hoist the BM25 sub-graph out of the loop). A call that
+        waited for the host would release the spin before it was queued;
+        then the seconds are the device time torch.profiler traces over
+        ``iters`` calls. On the CPU: wall seconds a call.
+        ``device_timing`` records which of "held stream", "profiler" or
+        "wall" gave the last result."""
+        args, kwargs = self.hybrid_step_inputs(
+            query_vecs, query_terms_list, where, **knobs
+        )
+
+        def call():
+            return hybrid_query_step_split(*args, **kwargs)
+
+        call().rows.cpu()                                   # warm-up
+        if self.device.type != "cuda":
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                out = call()
+            out.rows.cpu()
+            self.device_timing = "wall"
+            return (time.perf_counter() - t0) / iters
+        with torch.cuda.device(self.device):
+            t0 = time.perf_counter()
+            call()
+            queue_s = time.perf_counter() - t0    # the host's time a call
+            torch.cuda.synchronize()
+            spans, held = [], True
+            for _ in range(iters):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(int(4 * queue_s * 2e9))  # cycles, <= 2 GHz
+                start.record()
+                out = call()
+                end.record()
+                spans.append((start, end))
+                held = not start.query()    # the card not at the call yet
+                if not held:
+                    break
+            out.rows.cpu()                  # one host fetch ends the timing
+            if held:
+                self.device_timing = "held stream"
+                return sum(a.elapsed_time(b) for a, b in spans) / 1e3 / iters
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    out = call()
+                out.rows.cpu()
+            busy_us = sum(
+                e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+            )
+            self.device_timing = "profiler"
+            return busy_us / 1e6 / iters
+
+    def rows_to_ids(self, rows: Sequence[int]) -> List[Optional[str]]:
+        """The id of each row; None past the last row or below 0."""
+        return [
+            self.ids[r] if 0 <= r < self.n_rows else None for r in rows
+        ]
 
     def embeddings_for_rows(self, rows: np.ndarray) -> torch.Tensor:
         """Device gather of bf16 embedding rows (for MMR)."""

@@ -59,16 +59,17 @@ def rrf_merge(
     )
 
     # Per-branch scores for reporting; NaN = branch did not return the row.
-    nan = torch.tensor(float("nan"), device=dev)
+    # (A Python scalar, not a tensor made on the device: that copy from
+    # the host would make every batch wait for the card.)
     vdist = torch.where(
         in_vec.any(dim=2),
         torch.where(in_vec, vec_dist[:, None, :], 0.0).sum(2),
-        nan,
+        float("nan"),
     )
     bscore = torch.where(
         in_bm.any(dim=2),
         torch.where(in_bm, bm_scores[:, None, :], 0.0).sum(2),
-        nan,
+        float("nan"),
     )
 
     fused = torch.where(alive, fused, NEG_INF)

@@ -5,7 +5,9 @@ Masked dense scan (the CUDA kernel of ops/topk.py on the card) + f16
 pool rescore + MMR, subset-statistics split-frequency BM25, weighted
 RRF — plain functions on tensors, with the batch dimension written out
 where the reference vmaps. Returns ``top_k`` rows per query with
-fused/vector/bm25 scores.
+fused/vector/bm25 scores. ``hybrid_query_step`` is the same step with
+the gather-pass BM25 over the packed [N, L] term matrix, the reference
+of the sharded step; the store serves ``hybrid_query_step_split``.
 
 The reference's packed step (one i32 buffer for the batch metadata)
 exists to save round trips through a remote TPU link; here the arrays
@@ -21,7 +23,9 @@ import torch
 from classmate_rag_tpu_torch.index.lexical import (
     bm25_split_score_core,
     okapi_idf,
+    okapi_query_weights,
     okapi_sat,
+    okapi_score_rows,
     subset_stats,
 )
 from classmate_rag_tpu_torch.ops.fusion import rrf_merge
@@ -183,6 +187,54 @@ def _fuse(vec_rows, vec_dist, bm_rows, bm_vals, *, weight_vector,
         weight_vector, weight_bm25, rrf_k, top_k,
     )
     return HybridBatchResult(rows.to(torch.int32), fused, vdist, bscore)
+
+
+def hybrid_query_step(
+    emb,            # [N, d] bf16
+    term_ids,       # [N, L] i32
+    tfs,            # [N, L] u8
+    doc_len,        # [N] f32
+    df,             # [vocab_pad+1] f32 (subset df for the active mask)
+    mask_bias,      # [N] f32
+    q_vecs,         # [B, d] f32
+    q_terms,        # [B, M] i32 (-1 padded)
+    q_counts,       # [B, M] f32
+    *,
+    k_vector: int = 8,
+    k_bm25: int = 8,
+    top_k: int = 8,
+    pool: int = 24,
+    vocab_pad: int = 4096,
+    use_mmr: bool = True,
+    mmr_lambda: float = 0.5,
+    rrf_k: int = 60,
+    weight_vector: float = 1.0,
+    weight_bm25: float = 1.0,
+) -> HybridBatchResult:
+    """The fused step over the packed [N, L] term matrix (the gather-pass
+    BM25): the single-device reference the sharded step
+    (parallel/sharded.py) is held against. The subset sums are
+    ``lexical.subset_sums``'s, so avgdl equals the split step's bit for
+    bit."""
+    vec_rows, vec_dist = _dense_branch(
+        emb, mask_bias, q_vecs,
+        k_vector=k_vector, pool=pool, use_mmr=use_mmr, mmr_lambda=mmr_lambda,
+    )
+    _keep, n_sub, avgdl = subset_stats(mask_bias, doc_len)
+    idf = okapi_idf(df, n_sub)
+    bm_scores = okapi_score_rows(
+        term_ids, tfs, doc_len, avgdl,
+        okapi_query_weights(idf, q_terms, q_counts, vocab_pad), vocab_pad,
+    )                                                     # [B, N]
+    has_terms = torch.any(q_terms >= 0, dim=1, keepdim=True)
+    bm_rows, bm_vals = _bm25_postprocess(
+        bm_scores, mask_bias, has_terms, k_bm25=k_bm25,
+    )
+    return _fuse(
+        vec_rows, vec_dist, bm_rows, bm_vals,
+        weight_vector=weight_vector, weight_bm25=weight_bm25,
+        rrf_k=rrf_k, top_k=top_k,
+    )
 
 
 def hybrid_query_step_split(

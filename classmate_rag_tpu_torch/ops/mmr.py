@@ -30,12 +30,15 @@ def mmr_order(
     sims_cc = torch.bmm(c32, c32.transpose(1, 2))             # [B, P, P]
     sims_q = torch.where(valid, sims_q, NEG_INF)
     ar = torch.arange(b, device=valid.device)
+    # Picks leave the pool through masks made on the device: writing a
+    # host value through an index (``remaining[ar, pick] = False``)
+    # copies it from the host and waits for the card.
+    slots = torch.arange(p, device=valid.device)
 
     order = torch.full((b, k), -1, dtype=torch.int64, device=valid.device)
     first = torch.argmax(sims_q, dim=1)
     order[:, 0] = torch.where(valid.any(dim=1), first, -1)
-    remaining = valid.clone()
-    remaining[ar, first] = False
+    remaining = valid & (slots[None, :] != first[:, None])
     # Max similarity of each candidate to the selected set so far.
     run_max = sims_cc[ar, :, first]
 
@@ -45,7 +48,9 @@ def mmr_order(
         pick = torch.argmax(mmr, dim=1)
         ok = remaining.any(dim=1)
         order[:, j] = torch.where(ok, pick, -1)
-        remaining[ar, pick] &= ~ok
+        remaining = remaining & ~(
+            (slots[None, :] == pick[:, None]) & ok[:, None]
+        )
         run_max = torch.where(
             ok[:, None], torch.maximum(run_max, sims_cc[ar, :, pick]),
             run_max,

@@ -2,7 +2,8 @@
 the JAX package, nor the JAX package's command line (``cli``), with every
 module of it imported and its paths driven (the sharded engine, the
 dp×tp train step and tp decode of ``parallel/`` too; the multi-process
-mesh, the native tokenizer, the int8 scan and the profiling helpers),
+mesh, the native tokenizer, the int8 scan and the profiling helpers;
+the port's benchmark, which pulls in neither the root ``bench`` either),
 and a
 default-device call without CUDA (a training mesh without devices
 too) raises instead of running on the CPU. Both checks run in a fresh interpreter."""
@@ -22,7 +23,7 @@ _HOOK = textwrap.dedent("""
         def find_spec(self, name, path=None, target=None):
             top = name.split(".")[0]
             if top in ("jax", "jaxlib", "optax", "orbax",
-                       "classmate_rag_tpu", "cli"):
+                       "classmate_rag_tpu", "cli", "bench"):
                 raise ImportError(f"the port must not import {name}")
             return None
 
@@ -191,6 +192,25 @@ def test_port_imports_and_queries_without_jax():
     """)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "modules" in proc.stdout
+
+
+def test_bench_runs_without_jax_or_root_bench():
+    proc = _run("""
+        import sys
+        import classmate_rag_tpu_torch.bench as b
+        b.N_QUERIES, b.BATCH, b.MIN_PASS_S = 16, 8, 0.01
+        out = b.run_scale(400, n_oracle=8, filtered_oracle=True,
+                          device="cpu")
+        assert out["recall_vs_oracle@8"] >= 0.99, out
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib",
+                                               "classmate_rag_tpu", "cli",
+                                               "bench"))
+        assert not loaded, loaded
+        print("bench ran")
+    """, BENCH_PASSES="1")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "bench ran" in proc.stdout
 
 
 def test_default_device_without_cuda_raises():
