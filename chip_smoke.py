@@ -11,13 +11,14 @@ flash attention backward kernels, the routed ask with the index's
 admin verbs through the port's command line, the corpus-sharded
 serving engine with data-parallel encode, dp×tp training and decode
 over ("data", "model") meshes of logical ranks on the one card, the
-same sharded engine served by two processes, the int8 scan, and the
-port's benchmark at 1,000,000 chunks.
+same sharded engine served by two processes, the int8 scan, the port's
+benchmark at 1,000,000 chunks, and the port's measurement tools.
 
     python3 chip_smoke.py            # on a machine with one NVIDIA GPU
     python3 chip_smoke.py --product-child DIR   # phase 8's child alone
     python3 chip_smoke.py --decode-child        # phase 9's child alone
     python3 chip_smoke.py --multihost-child RANK DIR ADDR   # a phase 14 rank
+    python3 chip_smoke.py --tools-child cold|serve DIR      # a phase 17 child
 
 Phases, one JSON line each; any failure exits non-zero with no result:
 
@@ -28,7 +29,9 @@ Phases, one JSON line each; any failure exits non-zero with no result:
               and at edge cases (topk_scan also at 1,048,576 rows;
               topk_merge, its second launch, merges its lists); its
               time, the plain version's, one PyTorch library call's,
-              and the card's bound;
+              and the card's bound; then phase 10's and phase 13's
+              kernel checks (their 'kernels' line, part 'train'), here
+              while the process is young;
 3. slice      4 batches of 256 queries through IndexStore.hybrid_topk_batch
               (launch counts reset just before, read just after), the
               first 2 held against the same step on CPU copies of their
@@ -84,7 +87,8 @@ Phases, one JSON line each; any failure exits non-zero with no result:
               temperature 0) and a Q8_0 GGUF written by the port loaded
               by DecodeRunner. One JSON line a part, each beside the
               card's name and power limit.
-10. train     the backward kernels (flash_attn_bwd_delta, then the fused
+10. train     (its kernel checks run in phase 2) the backward kernels
+              (flash_attn_bwd_delta, then the fused
               flash_attn_bwd) against the plain version's autograd at
               (B 32, T 128), (16, 256), (8, 512) and (4, 200), 12 heads,
               padded rows and a row with no real key (cosine >= 0.9999,
@@ -213,6 +217,27 @@ Phases, one JSON line each; any failure exits non-zero with no result:
               dead slots), 1 scan + 1 merge a timed batch, the wall QPS
               at most 1.05x the device ceiling; the seconds of each part,
               the store's device bytes.
+17. tools     (run after phase 10, on what earlier phases hold) each of
+              the 14 tools of classmate_rag_tpu_torch/tools/ on the card,
+              one 'tools' line each (its report, its launch counts reset
+              just before and read just after, the card's name and power
+              limit): on phase 8's index (200,000 chunks) in fresh
+              processes (--tools-child), probe_cold_start (after its add,
+              1 full upload and no split build), then
+              probe_first_dispatch, bench_ask (9 asks, 9 scans),
+              bench_serve (32 clients, 3 s warm-up, a 5 s window, 4
+              /add + /delete rounds: no error, every round 200, the
+              served rows equal a reload's) and probe_fold_1m (the
+              entries plus its two); build_product_index at 20,000 rows;
+              on phase 3's store, bench_hybrid_profile (the step's
+              stage within 15 % of device_seconds_per_batch) and
+              bench_scan; with the E5-base encoder in the kernel
+              configuration, bench_embed, bench_encoder_roofline and
+              bench_ingest (a runtime it serves; the three encoder
+              kernels launched); bench_decode (the 768-wide decoder); on
+              the bench corpus at 200,000 chunks, probe_mutation_sync (no
+              full upload or split build over its 3 trials) and
+              debug_recall_1m (16 queries, n_miss reported).
 
 Then the kernels line ({"kernels": [...]}), the nvidia-smi line, and
 last {"ok": true, "device": {...}}. A kernel's ``ms`` (and the plain
@@ -662,13 +687,15 @@ def traced(fn, launches, cpu: bool = False, tries: int = TRACES,
     more the older the process, and now and then cuts a kernel's time
     short (tools/torch_profiler_drops.py): a session short of kernels
     is run again, up to ``tries`` in all, and with ``agree`` the trace
-    taken is the second of two whole ones whose device times agree
-    within TRACE_AGREE. The run fails if there is none. Returns the
-    trace's ``key_averages()`` and the number of sessions run."""
+    taken is the first whole one whose device time agrees within
+    TRACE_AGREE with an earlier whole one's (a trace cut short agrees
+    with none, and does not hide a later pair that agrees). The run
+    fails if there is none. Returns the trace's ``key_averages()`` and
+    the number of sessions run."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
-    last = None
+    whole = []      # the device times of the whole traces so far
     for n in range(1, tries + 1):
         before = sum(launches.values())
         with profile(activities=acts) as prof:
@@ -682,13 +709,13 @@ def traced(fn, launches, cpu: bool = False, tries: int = TRACES,
             continue
         if not agree:
             return events, n
-        if last is not None and abs(busy_us(events) - last) <= (
-                TRACE_AGREE * last):
+        busy = busy_us(events)
+        if any(abs(busy - b) <= TRACE_AGREE * b for b in whole):
             return events, n
-        last = busy_us(events)
+        whole.append(busy)
     raise SmokeFailure(f"{tries} traces, none whole{' twice' * agree}: the "
                        f"last holds {seen} of the port's kernels, {want} "
-                       "launched")
+                       f"launched; whole traces' device us {whole}")
 
 
 def device_ms(fn, launches, reps: int = 20):
@@ -1928,19 +1955,17 @@ def product_build(root: Path, docs, emb) -> dict:
     return out
 
 
-def product_phase(docs, emb, counts, profile_path) -> dict:
-    """Build the persisted index, then run the child against it."""
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        build = product_build(root, docs[:CHUNKS], emb[:CHUNKS])
-        cmd = [sys.executable, str(Path(__file__).resolve()),
-               "--product-child", str(root)]
-        if profile_path:
-            cmd += ["--profile", profile_path]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=900)
-        child_s = time.perf_counter() - t0
+def product_phase(root: Path, docs, emb, counts, profile_path) -> dict:
+    """Build the persisted index in ``root`` (kept for phase 17), then
+    run the child against it."""
+    build = product_build(root, docs[:CHUNKS], emb[:CHUNKS])
+    cmd = [sys.executable, str(Path(__file__).resolve()),
+           "--product-child", str(root)]
+    if profile_path:
+        cmd += ["--profile", profile_path]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    child_s = time.perf_counter() - t0
     report = None
     for line in proc.stdout.splitlines():
         if line.startswith("PRODUCT_CHILD_JSON:"):
@@ -3591,22 +3616,20 @@ def mesh_train_phase(docs, counts) -> dict:
     return line
 
 
-def train_kernels_and_phase(tatt, docs, counts, peaks, ckpt_dir: Path):
-    """Phase 10: the backward kernels against the plain autograd, and
-    phase 13's at a tensor-parallel rank's head counts (a 'kernels'
-    line, part 'train'), then the training path (its checkpoint saved to
-    ``ckpt_dir``) and phase 13's dp×tp train step; returns each backward
-    kernel's (B 32, T 128) row with its launches in the training run."""
+def train_kernels(tatt, peaks) -> list:
+    """Phase 10's kernel checks: the backward kernels against the plain
+    autograd, and phase 13's at a tensor-parallel rank's head counts (a
+    'kernels' line, part 'train'). Run in phase 2, while the process is
+    young: torch.profiler drops more kernels from an older process's
+    traces (tools/torch_profiler_drops.py). Returns each backward
+    kernel's (B 32, T 128) row, D's first."""
     t0 = time.perf_counter()
     (fused, delta), all_rows = flash_bwd_kernels(tatt, peaks)
     heads = flash_heads(tatt)
     emit({"phase": "kernels", "part": "train", "card": smi_line(),
           "kernels": all_rows, "mesh_heads": heads,
           "seconds": time.perf_counter() - t0})
-    launches = train_phase(tatt, docs, counts, peaks, ckpt_dir)["launches"]
-    mesh_train_phase(docs, counts)
-    return [(delta, launches["flash_attn_bwd_delta"]),
-            (fused, launches["flash_attn_bwd"])]
+    return [delta, fused]
 
 
 # ---------------------------------------------------------------------------
@@ -4227,6 +4250,256 @@ def routed_phase(tree, ckpt_dir: Path, docs, counts) -> dict:
 # 16. bench: classmate_rag_tpu_torch/bench.py's run_scale at serving scale
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# The port's tools (phase 17): each of the 14 on the card, on what earlier
+# phases hold (phase 3's store, the E5-base encoder, phase 8's index)
+# ---------------------------------------------------------------------------
+
+TOOLS_DEVICE = "cuda"
+TOOLS_ROWS = 200_000         # probe_mutation_sync, debug_recall_1m
+TOOLS_RECALL_QUERIES = 16
+TOOLS_BUILD_ROWS = 20_000    # build_product_index
+TOOLS_ENC_SHAPE = (64, 256)  # bench_embed, bench_encoder_roofline: B, T
+PROFILE_TOL = 0.15           # full_step vs device_seconds_per_batch
+SERVE_ARGV = ["--clients", "32", "--seconds", "5", "--warmup-seconds", "3",
+              "--port", "0", "--mutate", "4"]
+ASK_QUESTIONS = ["what about zxaa zxab zxac", "zxba zxbb compute the rate"]
+
+
+def tools_env(root: Path) -> dict:
+    """The product runtime's environment on phase 8's index."""
+    return dict(INDEX_DIR=str(root), BM25_DIR=str(root / "bm25"),
+                DENSE_DIR=str(root / "dense"), EMB_CACHE_DIR=str(root / "emb"),
+                EMBEDDING_BACKEND="hash", LLM_BACKEND="extractive",
+                BM25_TERMS_PER_CHUNK=str(PRODUCT_TERMS), N_SHARDS="1",
+                RUNTIME_PRECOMPILE="off")
+
+
+def tool_line(name: str, report, launches: dict, seconds: float) -> dict:
+    line = {"phase": "tools", "tool": name, "seconds": seconds,
+            "launches": launches, "report": report,
+            "nvidia_smi": smi_line()}
+    emit(line)
+    return line
+
+
+def run_tool(name: str, counts, fn):
+    """``fn()`` with every launch count 0 just before and read just
+    after; prints the tool's line and returns its report."""
+    counts.reset()
+    t0 = time.perf_counter()
+    report = fn()
+    torch.cuda.synchronize()
+    tool_line(name, report, counts.read(), time.perf_counter() - t0)
+    return report
+
+
+def tools_child(part: str, root: Path) -> int:
+    """A fresh process on phase 8's index: 'cold' runs probe_cold_start;
+    'serve' runs probe_first_dispatch, bench_ask, bench_serve (the storm)
+    and probe_fold_1m. Prints one TOOLS_CHILD_JSON line: each tool's
+    report and launch counts."""
+    import os
+
+    os.environ.update(tools_env(root))
+    from classmate_rag_tpu_torch.ops import attention as tatt
+    from classmate_rag_tpu_torch.ops import encoder_fused as tef
+    from classmate_rag_tpu_torch.ops import topk as ttopk
+
+    counts = Counts(ttopk, tef, tatt)
+    out = {}
+
+    def run(name, fn):
+        counts.reset()
+        t0 = time.perf_counter()
+        report = fn()
+        torch.cuda.synchronize()
+        out[name] = {"report": report, "launches": counts.read(),
+                     "seconds": time.perf_counter() - t0}
+
+    if part == "cold":
+        from classmate_rag_tpu_torch.tools import probe_cold_start
+
+        run("probe_cold_start", lambda: probe_cold_start.probe(TOOLS_DEVICE))
+    else:
+        from classmate_rag_tpu_torch.config import load_config
+        from classmate_rag_tpu_torch.pipeline.runtime import get_runtime
+        from classmate_rag_tpu_torch.tools import (
+            bench_ask, bench_serve, probe_first_dispatch, probe_fold_1m,
+        )
+
+        run("probe_first_dispatch",
+            lambda: probe_first_dispatch.probe(TOOLS_DEVICE))
+        rt = get_runtime()
+        run("bench_ask", lambda: bench_ask.run(ASK_QUESTIONS, n=8,
+                                               runtime=rt))
+        run("bench_serve", lambda: bench_serve.run(
+            bench_serve.parse_args(SERVE_ARGV), runtime=rt))
+        run("probe_fold_1m", lambda: probe_fold_1m.run(
+            load_config().bm25_dir))
+    print("TOOLS_CHILD_JSON:" + json.dumps(out), flush=True)
+    return 0
+
+
+def tools_children(root: Path, part: str) -> dict:
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--tools-child",
+         part, str(root)], capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        if line.startswith("TOOLS_CHILD_JSON:"):
+            out = json.loads(line[len("TOOLS_CHILD_JSON:"):])
+            for name, r in out.items():
+                tool_line(name, r["report"], r["launches"], r["seconds"])
+            return out
+    raise SmokeFailure(f"tools child {part} failed (rc={proc.returncode}):\n"
+                       f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+
+
+def tools_ingest(enc, docs, counts) -> None:
+    """bench_ingest on a fresh runtime that E5-base in the kernel
+    configuration serves (handed over as phase 11 hands it)."""
+    import os
+
+    from classmate_rag_tpu_torch.config import load_config
+    from classmate_rag_tpu_torch.embeddings.cache import CachingEmbedder
+    from classmate_rag_tpu_torch.pipeline import runtime as R
+    from classmate_rag_tpu_torch.tools import bench_ingest
+
+    saved = dict(os.environ)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = Path(tmp)
+            os.environ.update(tools_env(root / "idx"))
+            rt = R.get_runtime(reload=True, device=TOOLS_DEVICE)
+            emb = CachingEmbedder(enc, cache_dir=str(root / "emb"))
+            rt.embedder = rt.retriever.embedder = emb
+            rt.store.embedding_model = emb.model_name
+            files = []
+            for f in range(4):
+                path = root / f"lecture_{f}.txt"
+                path.write_text("\n\n".join(
+                    " ".join(docs[f * 40 + i]) for i in range(40)))
+                files.append(path)
+            report = run_tool("bench_ingest", counts,
+                              lambda: bench_ingest.run(files, 2,
+                                                       runtime=rt)[0])
+            launches = counts.read()
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+        R.reset_runtime()
+        load_config(reload=True)
+    check(report["total_chunks"] > 0
+          and report["embedder"].startswith(MODEL_NAME),
+          f"tools: bench_ingest {report}")
+    check(min(launches[k] for k in ("bias_gelu", "residual_ln",
+                                    "flash_attn")) > 0,
+          f"tools: bench_ingest launched {launches}")
+
+
+def tools_phase(product_root: Path, store, batches, enc, docs,
+                counts) -> None:
+    """Phase 17: every tool of classmate_rag_tpu_torch/tools/ on the card,
+    a JSON line each, held to the phase's bars."""
+    from classmate_rag_tpu_torch import bench
+    from classmate_rag_tpu_torch.tools import (
+        bench_decode, bench_embed, bench_encoder_roofline,
+        bench_hybrid_profile, bench_scan, build_product_index,
+        debug_recall_1m, probe_mutation_sync,
+    )
+
+    t_phase = time.perf_counter()
+    scan_keys = ("topk_scan", "topk_merge")
+    enc_keys = ("bias_gelu", "residual_ln", "flash_attn")
+
+    def launched(keys, name):
+        got = {k: counts.read()[k] for k in keys}
+        check(min(got.values()) > 0, f"tools: {name} launched {got}")
+
+    # The index tools on phase 8's index, in fresh processes.
+    cold = tools_children(product_root, "cold")["probe_cold_start"]
+    c = cold["report"]["counters"]
+    check(c["device_full_uploads"] == 1 and c["split_full_builds"] == 0,
+          f"tools: probe_cold_start counters {c}")
+    check(cold["launches"]["topk_scan"] > 0, "tools: cold start, no scan")
+    served = tools_children(product_root, "serve")
+    serve = served["bench_serve"]["report"]
+    check(serve["errors"] == 0, f"tools: bench_serve errors {serve}")
+    check(serve["mutation"]["rounds_ok"],
+          f"tools: storm rounds {serve['mutation']['rounds']}")
+    check(serve["mutation"]["reload"]["equal"],
+          f"tools: served rows vs reload {serve['mutation']['reload']}")
+    fold = served["probe_fold_1m"]["report"]
+    check(fold["post_fold_entries"] == fold["entries_before"] + 2,
+          f"tools: fold entries {fold}")
+    ask = served["bench_ask"]
+    check(ask["launches"]["topk_scan"] == 8 + 1,
+          f"tools: bench_ask launches {ask['launches']}")
+    for name in ("probe_first_dispatch", "bench_serve"):
+        check(served[name]["launches"]["topk_scan"] > 0,
+              f"tools: {name} launched no scan")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        built = run_tool("build_product_index", counts,
+                         lambda: build_product_index.build(
+                             Path(tmp), TOOLS_BUILD_ROWS, TOOLS_DEVICE))
+    check(built["rows"] == TOOLS_BUILD_ROWS, f"tools: built {built}")
+
+    # Phase 3's store: the stage profile and the scan's routes.
+    prof = run_tool("bench_hybrid_profile", counts,
+                    lambda: bench_hybrid_profile.profile(store, batches[0]))
+    launched(scan_keys, "bench_hybrid_profile")
+    step = "full_step" if prof["select_mode"] == "exact" else (
+        "full_step_approx")
+    st = prof["stages"][step]
+    stage_ms = st.get("profiler_ms", st["ms"])
+    check(abs(stage_ms - prof["step_device_ms"])
+          <= PROFILE_TOL * prof["step_device_ms"],
+          f"tools: {step} {stage_ms} ms vs device_seconds_per_batch "
+          f"{prof['step_device_ms']} ms")
+    n = store.n_rows
+    q = np.stack([qv for qv, _t in batches[0]])
+    run_tool("bench_scan", counts,
+             lambda: bench_scan.run(store.emb[:n], q, TOOLS_DEVICE))
+    launched(scan_keys, "bench_scan")
+
+    # The encoder of phases 6-7 (kernel configuration).
+    run_tool("bench_embed", counts,
+             lambda: bench_embed.run(enc.model, *TOOLS_ENC_SHAPE, 8))
+    launched(enc_keys, "bench_embed")
+    run_tool("bench_encoder_roofline", counts,
+             lambda: bench_encoder_roofline.run(enc.model,
+                                                *TOOLS_ENC_SHAPE, 8))
+    launched(enc_keys, "bench_encoder_roofline")
+    tools_ingest(enc, docs, counts)
+    run_tool("bench_decode", counts, lambda: bench_decode.run(
+        bench_decode.parse_args(["--batch", "8", "--prompt", "256",
+                                 "--new", "32", "--device", TOOLS_DEVICE])))
+
+    # The bench corpus at 200,000 chunks, built once for both.
+    rng = np.random.default_rng(42)
+    bdocs, bemb = bench.build_corpus(rng, TOOLS_ROWS)
+    bqueries = bench.make_queries(rng, bdocs, bemb)
+    mut = run_tool("probe_mutation_sync", counts,
+                   lambda: probe_mutation_sync.run(
+                       TOOLS_ROWS, 192, TOOLS_DEVICE, corpus=(bdocs, bemb)))
+    launched(scan_keys, "probe_mutation_sync")
+    for name in ("device_full_uploads", "split_full_builds"):
+        check(mut["counters_after"][name] == mut["counters_before"][name],
+              f"tools: probe_mutation_sync moved {name}: "
+              f"{mut['counters_before']} -> {mut['counters_after']}")
+    rec = run_tool("debug_recall_1m", counts, lambda: debug_recall_1m.run(
+        TOOLS_ROWS, TOOLS_RECALL_QUERIES, TOOLS_DEVICE,
+        corpus=(bdocs, bemb, bqueries)))
+    launched(scan_keys, "debug_recall_1m")
+    check(isinstance(rec["n_miss"], int), f"tools: n_miss {rec}")
+    del bdocs, bemb, bqueries
+    torch.cuda.empty_cache()
+    emit({"phase": "tools", "tools": 14,
+          "seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": smi_line()})
+
+
 BENCH_CHUNKS = 1_000_000
 BENCH_ORACLE = 64          # oracle queries (bench.py's scale-3 floor)
 BENCH_FILTERED = "16"      # BENCH_FILTERED_QUERIES: bench.py's above 100k
@@ -4311,6 +4584,9 @@ def main() -> int:
                          "persisted index in DIR (bm25/, dense/)")
     ap.add_argument("--decode-child", action="store_true",
                     help="run only the decode phase's child")
+    ap.add_argument("--tools-child", nargs=2, metavar=("PART", "DIR"),
+                    help="run one of phase 17's children (PART 'cold' or "
+                         "'serve') against the product index in DIR")
     ap.add_argument("--multihost-child", nargs=3,
                     metavar=("RANK", "DIR", "ADDR"),
                     help="run one rank of the multihost phase against the "
@@ -4325,6 +4601,9 @@ def main() -> int:
         return product_child(Path(args.product_child), args.profile)
     if args.decode_child:
         return decode_child()
+    if args.tools_child:
+        part, root = args.tools_child
+        return tools_child(part, Path(root))
     if args.multihost_child:
         rank, root, addr = args.multihost_child
         return multihost_child(int(rank), Path(root), addr)
@@ -4395,6 +4674,7 @@ def main() -> int:
     flash, flash_rows = flash_kernel(tatt, peaks)
     emit({"phase": "kernels",
           "kernels": [kern, kern_1m, merge, gelu, ln, *flash_rows]})
+    bwd_rows = train_kernels(tatt, peaks)
     counts = Counts(ttopk, tef, tatt)
 
     # ---- 3. slice: the main path -----------------------------------------
@@ -4549,7 +4829,7 @@ def main() -> int:
     # ---- 12. sharded: on the slice store, so it runs here -----------------
     sharded = sharded_phase(store, catalog, batches, oracle_sets, questions,
                             enc, enc_tree, docs, rng, counts, knobs)
-    del enc, store, catalog
+    del catalog                  # phase 17 takes the store and the encoder
     catalog_dir.cleanup()
     torch.cuda.empty_cache()
 
@@ -4557,16 +4837,26 @@ def main() -> int:
     multihost_phase(Path(mh_dir.name), sharded, mh_save_s)
     mh_dir.cleanup()
 
-    # ---- 8. product ------------------------------------------------------
-    product_phase(docs, emb, counts, args.profile)
+    # ---- 8. product (its index kept for phase 17) -------------------------
+    product_dir = tempfile.TemporaryDirectory()
+    product_phase(Path(product_dir.name), docs, emb, counts, args.profile)
 
     # ---- 9. decode -------------------------------------------------------
     decode_phase()
 
-    # ---- 10. train, 11. routed ------------------------------------------
+    # ---- 10. train, 17. tools, 11. routed ---------------------------------
     with tempfile.TemporaryDirectory() as ckpt_dir:
-        train_launches = train_kernels_and_phase(tatt, docs, counts, peaks,
-                                                 Path(ckpt_dir))
+        launches_10 = train_phase(tatt, docs, counts, peaks,
+                                  Path(ckpt_dir))["launches"]
+        mesh_train_phase(docs, counts)
+        # After phase 10's trace, which the profiler cuts short of kernels
+        # in an older process (tools/torch_profiler_drops.py); before
+        # phase 11, whose memory bars read the card without these.
+        tools_phase(Path(product_dir.name), store, batches, enc, docs,
+                    counts)
+        product_dir.cleanup()
+        del enc, store
+        torch.cuda.empty_cache()
         routed_phase(enc_tree, Path(ckpt_dir), docs, counts)
     del enc_tree, docs, emb
 
@@ -4579,7 +4869,7 @@ def main() -> int:
                    (gelu, enc_launches["bias_gelu"]),
                    (ln, enc_launches["residual_ln"]),
                    (flash, enc_launches["flash_attn"]),
-                   *train_launches):
+                   *((row, launches_10[row["name"]]) for row in bwd_rows)):
         row = {**row, "launches": n}
         line.append({k: row[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",

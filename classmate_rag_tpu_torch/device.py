@@ -25,6 +25,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def synchronize(device: DeviceLike) -> None:
+    """Wait for the work queued on a CUDA device (the counterpart of
+    JAX's ``block_until_ready``); nothing to wait for on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def pin_fp32_matmul() -> None:
     """Keep float32 matmuls in full float32 on the card.
 

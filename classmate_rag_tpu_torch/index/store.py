@@ -34,7 +34,6 @@ import json
 import logging
 import os
 import threading
-import time
 from collections import OrderedDict
 from dataclasses import dataclass
 from pathlib import Path
@@ -81,6 +80,7 @@ from classmate_rag_tpu_torch.ops.hybrid_step import (
 from classmate_rag_tpu_torch.ops.topk import masked_topk, stable_topk
 from classmate_rag_tpu_torch.utils.numerics import NEG_INF
 from classmate_rag_tpu_torch.utils.numerics import round_up as _round_up
+from classmate_rag_tpu_torch.utils.profiling import held_stream_ms
 
 # Host arrays a store is made of, with their dtypes (see from_host_state
 # and host_state).
@@ -1156,69 +1156,22 @@ class IndexStore:
         (``hybrid_step_inputs``); ``iters`` calls of
         ``hybrid_query_step_split`` then run on them.
 
-        On CUDA, before each call a spin kernel (``torch.cuda._sleep``)
-        holds the stream while the host queues the call between two CUDA
-        events, so the card runs the call's kernels back to back; one
-        host fetch of the last call's rows ends the timing, and the
-        result is the mean of the event spans. Each call gets its own
-        spin, so the host never has more than one call's few hundred
-        launches queued ahead of the card. Eager PyTorch runs every
-        call it is given, so nothing needs perturbing from call to call
-        (the JAX package threads a carry through its ``lax.scan`` so that
-        XLA cannot hoist the BM25 sub-graph out of the loop). A call that
-        waited for the host would release the spin before it was queued;
-        then the seconds are the device time torch.profiler traces over
-        ``iters`` calls. On the CPU: wall seconds a call.
-        ``device_timing`` records which of "held stream", "profiler" or
-        "wall" gave the last result."""
+        The timing is ``utils.profiling.held_stream_ms``'s: on CUDA each
+        call is queued behind a spin kernel between two CUDA events, and
+        the result is the mean event span; a call that waited for the
+        host releases the spin before it is queued, and then the seconds
+        are the device time torch.profiler traces over ``iters`` calls.
+        On the CPU: wall seconds a call. ``device_timing`` records which
+        of "held stream", "profiler" or "wall" gave the last result."""
         args, kwargs = self.hybrid_step_inputs(
             query_vecs, query_terms_list, where, **knobs
         )
-
-        def call():
-            return hybrid_query_step_split(*args, **kwargs)
-
-        call().rows.cpu()                                   # warm-up
-        if self.device.type != "cuda":
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                out = call()
-            out.rows.cpu()
-            self.device_timing = "wall"
-            return (time.perf_counter() - t0) / iters
-        with torch.cuda.device(self.device):
-            t0 = time.perf_counter()
-            call()
-            queue_s = time.perf_counter() - t0    # the host's time a call
-            torch.cuda.synchronize()
-            spans, held = [], True
-            for _ in range(iters):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                torch.cuda._sleep(int(4 * queue_s * 2e9))  # cycles, <= 2 GHz
-                start.record()
-                out = call()
-                end.record()
-                spans.append((start, end))
-                held = not start.query()    # the card not at the call yet
-                if not held:
-                    break
-            out.rows.cpu()                  # one host fetch ends the timing
-            if held:
-                self.device_timing = "held stream"
-                return sum(a.elapsed_time(b) for a, b in spans) / 1e3 / iters
-            from torch.profiler import ProfilerActivity, profile
-
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(iters):
-                    out = call()
-                out.rows.cpu()
-            busy_us = sum(
-                e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-            )
-            self.device_timing = "profiler"
-            return busy_us / 1e6 / iters
+        t = held_stream_ms(
+            lambda: hybrid_query_step_split(*args, **kwargs), iters,
+            self.device,
+        )
+        self.device_timing = t["timing"]
+        return t.get("profiler_ms", t["ms"]) / 1e3
 
     def rows_to_ids(self, rows: Sequence[int]) -> List[Optional[str]]:
         """The id of each row; None past the last row or below 0."""

@@ -44,19 +44,22 @@ def quantize_rows(emb: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 def int8_scores(q_i8: torch.Tensor, emb_i8: torch.Tensor) -> torch.Tensor:
     """``q_i8 @ emb_i8ᵀ`` → int32 [Q, N], exact: ``torch._int_mm`` on
-    CUDA (queries padded past 16 rows and d to a multiple of 8, with zero
-    rows and columns that add nothing), an int32 product on the CPU."""
+    CUDA (queries padded past 16 rows, d and the corpus rows to multiples
+    of 8, with zero rows and columns that add nothing), an int32 product
+    on the CPU."""
     if not emb_i8.is_cuda:
         return q_i8.to(torch.int32) @ emb_i8.to(torch.int32).T
     nq, d = q_i8.shape
+    n = emb_i8.shape[0]
     d_pad = round_up(d, _INT_MM_MULTIPLE)
-    if d_pad != d:
+    n_pad = round_up(n, _INT_MM_MULTIPLE)
+    if d_pad != d or n_pad != n:
         q_i8 = torch.nn.functional.pad(q_i8, (0, d_pad - d))
-        emb_i8 = torch.nn.functional.pad(emb_i8, (0, d_pad - d))
+        emb_i8 = torch.nn.functional.pad(emb_i8, (0, d_pad - d, 0, n_pad - n))
     rows = round_up(max(nq, _INT_MM_MIN_ROWS), _INT_MM_MULTIPLE)
     if rows != nq:
         q_i8 = torch.nn.functional.pad(q_i8, (0, 0, 0, rows - nq))
-    return torch._int_mm(q_i8.contiguous(), emb_i8.T)[:nq]
+    return torch._int_mm(q_i8.contiguous(), emb_i8.T)[:nq, :n]
 
 
 def quantize_queries(queries: torch.Tensor):

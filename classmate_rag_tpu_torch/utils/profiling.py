@@ -15,7 +15,7 @@ import time
 from contextlib import contextmanager
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Iterator, Optional
+from typing import Any, Callable, Dict, Iterator, Optional
 
 import torch
 
@@ -99,4 +99,69 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
     prof.export_chrome_trace(str(out / f"trace-{time.time_ns()}.json"))
 
 
-__all__ = ["Throughput", "device_peaks", "trace"]
+def held_stream_ms(call: Callable[[], Any], iters: int,
+                   device: Any) -> Dict[str, Any]:
+    """The device time of one ``call()`` on ``device``, with the host out
+    of the card's way.
+
+    One call warms up. On CUDA, before each of ``iters`` calls a spin
+    kernel (``torch.cuda._sleep``, four times the host's time to queue a
+    call) holds the stream while the host queues the call between two
+    CUDA events, so the card runs the call's kernels back to back; a
+    synchronize ends the timing. Eager PyTorch runs every call it is
+    given, so nothing needs perturbing from call to call (the JAX package
+    threads a carry through a ``lax.scan`` so that XLA cannot hoist work
+    out of its loop). A call that waited for the host releases the spin
+    before it is queued: the loop stops there, ``held`` is False, and
+    ``profiler_ms`` gives the device time torch.profiler traces over
+    ``iters`` calls. Returns {"ms": mean CUDA-event span a call (with
+    the host's wait in it where ``held`` is False), "held", "timing":
+    "held stream" | "profiler" | "wall", and "profiler_ms" where not
+    held}. On the CPU: wall time a call, timing "wall", held False."""
+    dev = torch.device(device)
+    call()                                               # warm-up
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            call()
+        return {"ms": (time.perf_counter() - t0) * 1e3 / iters,
+                "held": False, "timing": "wall"}
+    with torch.cuda.device(dev):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        queue_s = time.perf_counter() - t0        # the host's time a call
+        torch.cuda.synchronize()
+        spans, held = [], True
+        for _ in range(iters):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(int(4 * queue_s * 2e9))    # cycles, <= 2 GHz
+            start.record()
+            call()
+            end.record()
+            spans.append((start, end))
+            held = not start.query()        # the card not at the call yet
+            if not held:
+                break
+        torch.cuda.synchronize()
+        out = {"ms": sum(a.elapsed_time(b) for a, b in spans) / len(spans),
+               "held": held,
+               "timing": "held stream" if held else "profiler"}
+        if held:
+            return out
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                call()
+            torch.cuda.synchronize()
+        busy_us = sum(
+            e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+        )
+        out["profiler_ms"] = busy_us / 1e3 / iters
+        return out
+
+
+__all__ = ["Throughput", "device_peaks", "held_stream_ms", "trace"]

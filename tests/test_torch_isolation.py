@@ -3,8 +3,9 @@ the JAX package, nor the JAX package's command line (``cli``), with every
 module of it imported and its paths driven (the sharded engine, the
 dp×tp train step and tp decode of ``parallel/`` too; the multi-process
 mesh, the native tokenizer, the int8 scan and the profiling helpers;
-the port's benchmark, which pulls in neither the root ``bench`` either),
-and a
+the port's benchmark, which pulls in neither the root ``bench`` either;
+the port's measurement tools, which import neither the root ``bench``
+nor the root ``tools/``), and a
 default-device call without CUDA (a training mesh without devices
 too) raises instead of running on the CPU. Both checks run in a fresh interpreter."""
 
@@ -23,7 +24,7 @@ _HOOK = textwrap.dedent("""
         def find_spec(self, name, path=None, target=None):
             top = name.split(".")[0]
             if top in ("jax", "jaxlib", "optax", "orbax",
-                       "classmate_rag_tpu", "cli", "bench"):
+                       "classmate_rag_tpu", "cli", "bench", "tools"):
                 raise ImportError(f"the port must not import {name}")
             return None
 
@@ -211,6 +212,29 @@ def test_bench_runs_without_jax_or_root_bench():
     """, BENCH_PASSES="1")
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "bench ran" in proc.stdout
+
+
+def test_tools_import_no_root_bench_or_tools():
+    """Every import statement of ``classmate_rag_tpu_torch/tools/``, at
+    any depth (the tools import lazily, inside their functions), names
+    the port, torch or the standard library: never JAX, the JAX
+    package, the root ``bench`` or the root ``tools/``."""
+    import ast
+
+    refused = ("jax", "jaxlib", "classmate_rag_tpu", "cli", "bench", "tools")
+    files = sorted((ROOT / "classmate_rag_tpu_torch" / "tools").glob("*.py"))
+    assert len(files) == 15, [f.name for f in files]
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                assert node.level == 0, (path.name, node.module)
+                names = [node.module]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in refused, (path.name, name)
 
 
 def test_default_device_without_cuda_raises():

@@ -519,3 +519,19 @@ def test_int8_stage1_on_the_card_equals_cpu(cuda, nq, d):
             torch.from_numpy(bias))
     cand = int8_candidates(a.to(cuda), *(x.to(cuda) for x in args), 64)
     assert torch.equal(cand.cpu(), int8_candidates(a, *args, 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4101, 200_010])
+def test_int8_scores_on_the_card_any_corpus_rows(cuda, n):
+    """``torch._int_mm`` takes only multiples of 8 columns: a corpus of
+    any row count is padded with zero rows and cut back."""
+    from classmate_rag_tpu_torch.ops.quant import int8_scores
+
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(rng.integers(-127, 128, (n, 60), dtype=np.int8))
+    q8 = torch.from_numpy(rng.integers(-127, 128, (5, 60), dtype=np.int8))
+    got = int8_scores(q8.to(cuda), a.to(cuda))
+    torch.cuda.synchronize()
+    assert got.shape == (5, n)
+    assert torch.equal(got.cpu(), int8_scores(q8, a))
