@@ -12,7 +12,9 @@ admin verbs through the port's command line, the corpus-sharded
 serving engine with data-parallel encode, dp×tp training and decode
 over ("data", "model") meshes of logical ranks on the one card, the
 same sharded engine served by two processes, the int8 scan, the port's
-benchmark at 1,000,000 chunks, and the port's measurement tools.
+benchmark at 1,000,000 chunks, the port's measurement tools, and its
+driver entry points (``graft_entry``: the E5-base forward and the
+six-stage multi-device dryrun).
 
     python3 chip_smoke.py            # on a machine with one NVIDIA GPU
     python3 chip_smoke.py --product-child DIR   # phase 8's child alone
@@ -26,7 +28,8 @@ Phases, one JSON line each; any failure exits non-zero with no result:
               the chip utils/profiling.py detects (its peak table gives
               every bound);
 2. kernels    each kernel vs its plain version at the main paths' shapes
-              and at edge cases (topk_scan also at 1,048,576 rows;
+              and at edge cases (topk_scan also at 1,048,576 rows, and
+              at k equal to the corpus's 16 rows at d 64;
               topk_merge, its second launch, merges its lists); its
               time, the plain version's, one PyTorch library call's,
               and the card's bound; then phase 10's and phase 13's
@@ -238,6 +241,19 @@ Phases, one JSON line each; any failure exits non-zero with no result:
               the bench corpus at 200,000 chunks, probe_mutation_sync (no
               full upload or split build over its 3 trials) and
               debug_recall_1m (16 queries, n_miss reported).
+18. graft     (run after phase 12) the port's driver entry points
+              (classmate_rag_tpu_torch/graft_entry.py): entry() on the
+              card (E5-base, B 8, T 128; no kernel on its path) against
+              the same model on the CPU (per-row cosine >= 0.9999), then
+              dryrun_multichip(4) over 4 logical ranks of cuda:0 (the
+              cards, where a machine has 4) with every stage's assertion:
+              (a) a dp×tp train step, (b) and (c) the sharded hybrid step
+              with either BM25 equal to one device's, (d) dp×tp greedy
+              decode, (e) the product path's sharded runtime with a
+              delete seen through the journal, (f) data-parallel encode
+              (launch counts reset just before, read just after:
+              topk_scan and topk_merge in b, c and e); seconds a stage;
+              no environment variable or runtime left behind.
 
 Then the kernels line ({"kernels": [...]}), the nvidia-smi line, and
 last {"ok": true, "device": {...}}. A kernel's ``ms`` (and the plain
@@ -261,6 +277,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -583,6 +600,11 @@ def slice_edges(ttopk):
     edge = unit(n_edge).to(torch.bfloat16).cuda()
     errs.append(compare_topk(ttopk, edge, unit(BATCH).cuda(),
                              torch.zeros(n_edge, device="cuda"), 32))
+    # k equal to the corpus's rows, at d 64: one shard of the graft
+    # phase's sharded steps (16 rows, 2 queries, k 16).
+    errs.append(compare_topk(ttopk, unit(16, 64).to(torch.bfloat16).cuda(),
+                             unit(2, 64).cuda(),
+                             torch.zeros(16, device="cuda"), 16))
     return max(errs)
 
 
@@ -1545,6 +1567,88 @@ def sharded_phase(store, catalog, batches, oracle_sets, questions, enc,
                           "cos_vs_single_device": cos,
                           "encode_s": secs["passages"],
                           "single_device_encode_s": single_s["passages"]},
+        "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi_line(),
+    }
+    emit(line)
+    return line
+
+
+# ---------------------------------------------------------------------------
+# The driver entry points (phase 18, graft): entry() and dryrun_multichip
+# ---------------------------------------------------------------------------
+
+GRAFT_RANKS = 4                  # dryrun_multichip's devices: logical ranks
+GRAFT_SCAN_STAGES = ("b", "c", "e")   # the stages that run the dense scan
+
+
+def graft_phase(counts) -> dict:
+    """graft_entry.entry() on the card against the same model on the CPU
+    (per-row cosine >= ENC_COS_MIN; no kernel on its path), then
+    dryrun_multichip(GRAFT_RANKS) with every stage's assertion (launch
+    counts reset just before, read just after: topk_scan and topk_merge
+    in stages b, c and e), leaving no environment variable or runtime
+    behind."""
+    from classmate_rag_tpu_torch import graft_entry
+    from classmate_rag_tpu_torch.embeddings.model import params_from_numpy
+    from classmate_rag_tpu_torch.pipeline import runtime
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry()
+    build_s = time.perf_counter() - t0
+    counts.reset()
+    with torch.inference_mode():
+        out = fn(*args)
+        torch.cuda.synchronize()
+        fwd_ms = time_ms(lambda: fn(*args), reps=10, warmup=2)
+    entry_launches = counts.read()
+    check(tuple(out.shape) == (8, 768) and out.dtype == torch.float32,
+          f"entry forward {tuple(out.shape)} {out.dtype}")
+    got = out.cpu().numpy()
+    check(bool(np.isfinite(got).all()), "entry forward: non-finite values")
+    check(not any(entry_launches.values()),
+          f"entry forward launched kernels: {entry_launches}")
+    t0 = time.perf_counter()
+    cpu_model = params_from_numpy(fn.params_numpy(), fn.config, "cpu")
+    with torch.inference_mode():
+        want = cpu_model(*(a.cpu() for a in args)).numpy()
+    cpu_s = time.perf_counter() - t0
+    cos = row_cos(got, want)
+    check(cos >= ENC_COS_MIN, f"entry forward card vs CPU cosine {cos}")
+    del fn, args, out, cpu_model
+    torch.cuda.empty_cache()
+
+    env = dict(os.environ)
+    rt, local = runtime._RUNTIME, runtime.local_devices
+    counts.reset()
+    t0 = time.perf_counter()
+    res = graft_entry.dryrun_multichip(GRAFT_RANKS)
+    dryrun_s = time.perf_counter() - t0
+    launches = counts.read()
+    for stage in GRAFT_SCAN_STAGES:
+        for name in ("topk_scan", "topk_merge"):
+            n = res["launches"][stage][name]
+            check(n > 0, f"graft stage {stage}: {name} launched {n} times")
+    check(all(sum(s[k] for s in res["launches"].values()) == v
+              for k, v in launches.items()),
+          f"graft stage launches {res['launches']} != {launches}")
+    check(dict(os.environ) == env, "dryrun left the environment changed")
+    check(runtime._RUNTIME is rt and runtime.local_devices is local,
+          "dryrun left a runtime behind")
+    torch.cuda.empty_cache()
+    line = {
+        "phase": "graft", "entry": {
+            "shape": [8, 768], "build_s": build_s, "forward_ms": fwd_ms,
+            "cos_vs_cpu": cos, "cpu_s": cpu_s,
+            "launches": entry_launches},
+        "dryrun": {"n_devices": GRAFT_RANKS, "devices": res["devices"],
+                   "loss": res["a"], "rows_b": res["b"][0].tolist(),
+                   "rows_c": res["c"][0].tolist(),
+                   "tokens_d": res["d"].tolist(),
+                   "retrieved_e": res["e"]["got"],
+                   "stage_s": res["seconds"],
+                   "stage_launches": res["launches"], "launches": launches,
+                   "dryrun_s": dryrun_s},
         "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi_line(),
     }
     emit(line)
@@ -4832,6 +4936,9 @@ def main() -> int:
     del catalog                  # phase 17 takes the store and the encoder
     catalog_dir.cleanup()
     torch.cuda.empty_cache()
+
+    # ---- 18. graft: the driver entry points -------------------------------
+    graft_phase(counts)
 
     # ---- 14. multihost ---------------------------------------------------
     multihost_phase(Path(mh_dir.name), sharded, mh_save_s)

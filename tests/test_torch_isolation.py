@@ -5,7 +5,8 @@ dp×tp train step and tp decode of ``parallel/`` too; the multi-process
 mesh, the native tokenizer, the int8 scan and the profiling helpers;
 the port's benchmark, which pulls in neither the root ``bench`` either;
 the port's measurement tools, which import neither the root ``bench``
-nor the root ``tools/``), and a
+nor the root ``tools/``; the driver entry points, which do not import
+the root ``__graft_entry__``), and a
 default-device call without CUDA (a training mesh without devices
 too) raises instead of running on the CPU. Both checks run in a fresh interpreter."""
 
@@ -24,7 +25,8 @@ _HOOK = textwrap.dedent("""
         def find_spec(self, name, path=None, target=None):
             top = name.split(".")[0]
             if top in ("jax", "jaxlib", "optax", "orbax",
-                       "classmate_rag_tpu", "cli", "bench", "tools"):
+                       "classmate_rag_tpu", "cli", "bench", "tools",
+                       "__graft_entry__"):
                 raise ImportError(f"the port must not import {name}")
             return None
 
@@ -184,6 +186,9 @@ def test_port_imports_and_queries_without_jax():
         os.environ.update(EMBEDDING_BACKEND="e5")
         enc = get_embedder(checkpoint=str(root / "ck"), device="cpu")
         assert enc.encode_queries(["a b"]).shape == (1, 64)
+        # The driver entry points' six stages, on two logical CPU ranks.
+        from classmate_rag_tpu_torch import graft_entry
+        assert set("abcdef") <= set(graft_entry.dryrun_multichip(2, "cpu"))
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "optax",
                                                "orbax", "classmate_rag_tpu",
@@ -253,6 +258,7 @@ def test_default_device_without_cuda_raises():
             corpus_mesh, training_mesh)
         from classmate_rag_tpu_torch.parallel.multihost import (
             dcn_training_mesh, process_corpus_mesh)
+        from classmate_rag_tpu_torch import graft_entry
         for call in (lambda: IndexStore(8), lambda: resolve_device(None),
                      lambda: corpus_mesh(), lambda: training_mesh(),
                      lambda: process_corpus_mesh(),
@@ -261,7 +267,9 @@ def test_default_device_without_cuda_raises():
                      lambda: make_train_step(EncoderConfig.small_test()),
                      lambda: resolve_device("cuda"),
                      lambda: get_runtime(reload=True),
-                     lambda: make_server("127.0.0.1", 0)):
+                     lambda: make_server("127.0.0.1", 0),
+                     lambda: graft_entry.entry(),
+                     lambda: graft_entry.dryrun_multichip(2)):
             try:
                 call()
             except RuntimeError as e:
