@@ -36,10 +36,18 @@ Phases, one JSON line each; any failure exits non-zero with no result:
               kernel checks (their 'kernels' line, part 'train'), here
               while the process is young;
 3. slice      4 batches of 256 queries through IndexStore.hybrid_topk_batch
-              (launch counts reset just before, read just after), the
-              first 2 held against the same step on CPU copies of their
-              inputs;
-              recall@8 against a numpy oracle; warm batch latency;
+              (launch counts reset just before, read just after), all 4
+              held against the same packed step on CPU copies of their
+              inputs, and against the unpacked step on the card (rows
+              equal, scores within 1e-6);
+              recall@8 against a numpy oracle; warm batch latency; the
+              host-to-device copies of one warm batch (the Memcpy HtoD
+              events of a torch.profiler trace: 2, the packed metadata
+              and the query vectors) and their bytes, equal to the copy
+              ops the batch dispatches; whether making a
+              batch's inputs waits for work queued on the stream, for
+              the packed upload and for the pageable one-array-a-copy
+              upload bm25_topk still makes (and that upload's copies);
 4. approx     one batch with the approx route forced (fast BM25 + exact
               pool rescore), held against the CPU the same way;
 5. retriever  HybridRetriever over the same store vs a CPU copy of it;
@@ -55,7 +63,11 @@ Phases, one JSON line each; any failure exits non-zero with no result:
               handed to the store on the card (launch counts reset just
               before the ingest, read after the first ask); ids equal to
               the host-encode path's; recall@8 against the oracle fed the
-              port's own vectors; encode, step and warm batch latency.
+              port's own vectors; encode, step and warm batch latency;
+              the host-to-device copies of one step on the encoder's
+              query tensor (1: the packed metadata), counted by the
+              torch ops that copy (phase 3 holds that count equal to its
+              trace's; the profiler loses kernels at this age).
 8. product    the product path at bench.py's scale-2 size (200,000 chunks
               of the slice corpus, d 768, stable_chunk_id ids, 10 chunks a
               document, BM25_TERMS_PER_CHUNK 256, capacity 262,144): a
@@ -292,7 +304,7 @@ DIM = 768
 CHUNKS = 200_000
 BATCH = 256
 N_BATCHES = 4
-CPU_BATCHES = 2        # of them held against the CPU (phase 11's budget)
+CPU_BATCHES = 4        # of them held against the CPU
 K = 8
 POOL = 24
 RRF_K = 60
@@ -300,6 +312,8 @@ N_ORACLE = 64
 RECALL_MIN = 0.99
 ROWS_AGREE_MIN = 0.999
 STEP_TOL = 1e-4        # GPU vs CPU fused-step scores (f32, other sum order)
+PACKED_TOL = 1e-6      # packed vs unpacked step on the card (the same ops
+                       # on the same values)
 BOUND_FLOOR = 0.95     # a kernel's device time may not fall under this x bound
 KERNEL_TOL = 1e-5      # kernel vs plain scores (f32 sums of bf16 products)
 LN_TOL = 1e-5          # residual_ln kernel vs plain (f32, other sum order)
@@ -940,11 +954,81 @@ def flash_kernel(tatt, peaks):
     return rows[(128, 128)], list(rows.values())
 
 
-def step_on_cpu(step, store, q, terms, **knobs):
-    """The fused step on CPU copies of the same device inputs."""
+def step_on_cpu(store, q, terms, **knobs):
+    """The packed fused step on CPU copies of the same device inputs."""
+    from classmate_rag_tpu_torch.ops.hybrid_step import (
+        hybrid_query_step_split_packed,
+    )
+
     args, kwargs = store.hybrid_step_inputs(q, terms, None, **knobs)
     cpu_args = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
-    return step(*cpu_args, **kwargs)
+    return hybrid_query_step_split_packed(*cpu_args, **kwargs)
+
+
+def packed_vs_unpacked(store, q, terms, **knobs):
+    """The store's packed step and the unpacked step on views of the same
+    packed buffer, on the card: (rows equal, max score diff)."""
+    from classmate_rag_tpu_torch.ops.hybrid_step import (
+        hybrid_query_step_split,
+        hybrid_query_step_split_packed,
+        unpack_query_arrays,
+    )
+
+    args, kwargs = store.hybrid_step_inputs(q, terms, None, **knobs)
+    statics = {s: kwargs.pop(s) for s in ("h", "u", "t", "b", "m")}
+    qa = unpack_query_arrays(args[8], **statics)
+    want = hybrid_query_step_split(
+        *args[:8], *(qa[c] for c in (
+            "h_slots", "h_tids", "u_starts", "u_lens", "u_cols", "t_tids",
+            "q_tids", "q_counts", "has_terms")), *args[9:], **kwargs)
+    got = hybrid_query_step_split_packed(*args, **statics, **kwargs)
+    rows_equal = bool(torch.equal(got.rows, want.rows))
+    worst = 0.0
+    for name in ("fused", "vec_dist", "bm25_score"):
+        a, b = getattr(got, name).cpu(), getattr(want, name).cpu()
+        check(bool((torch.isnan(a) == torch.isnan(b)).all()),
+              f"packed vs unpacked: {name} NaN pattern differs")
+        ok = ~torch.isnan(a)
+        if ok.any():
+            worst = max(worst, (a[ok] - b[ok]).abs().max().item())
+    return rows_equal, worst
+
+
+def h2d_per_batch(fn, counts, tries: int = 2 * TRACES) -> dict:
+    """The host-to-device copies of one run of ``fn``: the ``Memcpy
+    HtoD`` events of a torch.profiler trace that holds every kernel of
+    the port the run launched (``counts``: a ``Counts``; a trace short
+    of them is taken again, up to ``tries``)."""
+    from classmate_rag_tpu_torch.utils.profiling import (
+        chrome_events, h2d_copies,
+    )
+
+    for _ in range(tries):
+        before = sum(counts.read().values())
+        events = chrome_events(fn)
+        want = sum(counts.read().values()) - before
+        seen = sum(1 for e in events if e.get("cat") == "kernel"
+                   and any(k in e.get("name", "") for k in PORT_KERNELS))
+        if want > 0 and seen == want:
+            return h2d_copies(events)
+    raise SmokeFailure(f"{tries} traces, none whole: the last holds "
+                       f"{seen} of the port's kernels, {want} launched")
+
+
+def waits_for_stream(fn, spin_cycles: int = 100_000_000) -> dict:
+    """Whether ``fn()`` made the host wait for work queued before it: a
+    spin kernel (~50-100 ms) holds the stream, and the card is checked
+    the moment ``fn`` returns. {"waited", "host_ms"}."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(spin_cycles)
+    after_spin = torch.cuda.Event()
+    after_spin.record()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    waited = after_spin.query()
+    torch.cuda.synchronize()
+    return {"waited": waited, "host_ms": host_ms}
 
 
 def compare_steps(gpu, cpu):
@@ -1216,6 +1300,7 @@ def ingest_ask_phase(enc, docs, rng, counts, knobs):
     from classmate_rag_tpu_torch.index.store import IndexStore
     from classmate_rag_tpu_torch.retrieval.hybrid import HybridRetriever
     from classmate_rag_tpu_torch.utils.lang import detect_lang_tag
+    from classmate_rag_tpu_torch.utils.profiling import HostToDeviceOps
 
     texts, _longs, questions = encoder_texts(rng, docs)
     ids = [f"e{i}" for i in range(ENC_CHUNKS)]
@@ -1281,6 +1366,14 @@ def ingest_ask_phase(enc, docs, rng, counts, knobs):
             t0 = time.perf_counter()
             step(q_dev, terms, None, **knobs).rows.cpu()
             step_ms.append((time.perf_counter() - t0) * 1e3)
+        # The query tensor is on the card: the packed metadata is the
+        # step's one upload. Counted by the ops that copy (phase 3 holds
+        # that count equal to its trace's): at this age of the process
+        # the profiler loses every kernel of a step's trace.
+        with HostToDeviceOps() as h2d:
+            step(q_dev, terms, None, **knobs).rows.cpu()
+        check(h2d.copies == 1, f"ingest+ask: {h2d.copies} host-to-device "
+              f"copies a step, not 1")
 
         host = dataclasses.replace(ret, use_device_encode=False)
         want = host.retrieve_batch(questions=questions)
@@ -1307,6 +1400,8 @@ def ingest_ask_phase(enc, docs, rng, counts, knobs):
           "recall_at_8": recall, "n_oracle": N_QUESTIONS,
           "encode_ms": statistics.median(encode_ms),
           "step_ms": statistics.median(step_ms),
+          "h2d_copies_per_batch": h2d.copies,
+          "h2d_bytes_per_batch": h2d.bytes, "h2d_counted_by": "copy ops",
           "warm_batch_ms": statistics.median(walls),
           "batch_wall_ms": walls, "first_ask_s": t_first,
           "ingest_s": {"encode": t_encode, "encode_and_upsert": t_ingest},
@@ -4553,7 +4648,7 @@ def tools_phase(product_root: Path, store, batches, enc, docs,
     prof = run_tool("bench_hybrid_profile", counts,
                     lambda: bench_hybrid_profile.profile(store, batches[0]))
     launched(scan_keys, "bench_hybrid_profile")
-    step = "full_step" if prof["select_mode"] == "exact" else (
+    step = "full_step_packed" if prof["select_mode"] == "exact" else (
         "full_step_approx")
     st = prof["stages"][step]
     stage_ms = st.get("profiler_ms", st["ms"])
@@ -4714,16 +4809,19 @@ def main() -> int:
 
     from classmate_rag_tpu_torch.embeddings.hashing import HashingEmbedder
     from classmate_rag_tpu_torch.index.catalog import Catalog, CatalogEntry
+    from classmate_rag_tpu_torch.index.lexical import pack_query_terms
     from classmate_rag_tpu_torch.index.store import IndexStore
     from classmate_rag_tpu_torch.ops import _build
     from classmate_rag_tpu_torch.ops import attention as tatt
     from classmate_rag_tpu_torch.ops import encoder_fused as tef
     from classmate_rag_tpu_torch.ops import topk as ttopk
-    from classmate_rag_tpu_torch.ops.hybrid_step import (
-        hybrid_query_step_split,
-    )
     from classmate_rag_tpu_torch.retrieval.hybrid import HybridRetriever
-    from classmate_rag_tpu_torch.utils.profiling import Throughput
+    from classmate_rag_tpu_torch.utils.profiling import (
+        HostToDeviceOps,
+        Throughput,
+        chrome_events,
+        h2d_copies,
+    )
 
     # ---- 1. device ---------------------------------------------------
     smi = smi_line()
@@ -4801,19 +4899,48 @@ def main() -> int:
         check(launches[name] == len(batches),
               f"{name} launches {launches[name]} != {len(batches)}")
 
+    # One warm batch's host-to-device copies: the packed metadata and
+    # the query vectors.
+    h2d = h2d_per_batch(lambda: run_batch(batches[2]).rows.cpu(), counts)
+    check(h2d["copies"] == 2, f"slice: {h2d['copies']} host-to-device "
+          f"copies a batch, not 2 ({h2d['kinds']})")
+    with HostToDeviceOps() as h2d_ops:   # phase 7's count, held to the trace
+        run_batch(batches[2]).rows.cpu()
+    check((h2d_ops.copies, h2d_ops.bytes) == (h2d["copies"], h2d["bytes"]),
+          f"slice: copy ops {h2d_ops.copies} ({h2d_ops.bytes} B) vs the "
+          f"trace's {h2d['copies']} ({h2d['bytes']} B)")
+    q2 = np.stack([qv for qv, _t in batches[2]])
+    terms2 = [t for _q, t in batches[2]]
+    q_terms2, q_counts2 = pack_query_terms(store.vocab, terms2, 32)
+    inputs_wait = {
+        "packed": waits_for_stream(lambda: store.hybrid_step_inputs(
+            q2, terms2, None, **knobs)),
+        "pageable": waits_for_stream(lambda: store._split_query_tensors(
+            q_terms2, q_counts2)),
+    }
+    inputs_wait["pageable"]["h2d_copies"] = h2d_copies(chrome_events(
+        lambda: store._split_query_tensors(q_terms2, q_counts2)))["copies"]
+
     agree_total, worst = 0, 0.0
+    packed_rows_equal, packed_worst = True, 0.0
     t0 = time.perf_counter()
     for batch, (out, _rows) in list(zip(batches, outs))[:CPU_BATCHES]:
         q = np.stack([qv for qv, _t in batch])
-        cpu = step_on_cpu(hybrid_query_step_split, store, q,
-                          [t for _q, t in batch], **knobs)
+        terms = [t for _q, t in batch]
+        cpu = step_on_cpu(store, q, terms, **knobs)
         n_agree, diff = compare_steps(out, cpu)
         agree_total += n_agree
         worst = max(worst, diff)
+        equal, diff = packed_vs_unpacked(store, q, terms, **knobs)
+        packed_rows_equal &= equal
+        packed_worst = max(packed_worst, diff)
     t_cpu = time.perf_counter() - t0
     agree_frac = agree_total / (CPU_BATCHES * BATCH)
     check(agree_frac >= ROWS_AGREE_MIN,
           f"GPU vs CPU rows agree on {agree_frac:.4f} of queries")
+    check(packed_rows_equal, "packed vs unpacked step: rows differ")
+    check(packed_worst <= PACKED_TOL, f"packed vs unpacked step: max "
+          f"score diff {packed_worst} > {PACKED_TOL}")
 
     t0 = time.perf_counter()
     bm25 = OracleBM25(docs)
@@ -4836,6 +4963,12 @@ def main() -> int:
           "launches": launches, "rows_agree_gpu_cpu": agree_frac,
           "cpu_batches": CPU_BATCHES,
           "max_score_diff_gpu_cpu": worst, "recall_at_8": recall,
+          "packed_vs_unpacked": {"rows_equal": packed_rows_equal,
+                                 "max_score_diff": packed_worst},
+          "h2d_copies_per_batch": h2d["copies"],
+          "h2d_bytes_per_batch": h2d["bytes"], "h2d_kinds": h2d["kinds"],
+          "h2d_copy_ops_per_batch": h2d_ops.copies,
+          "inputs_wait_for_stream": inputs_wait,
           "n_oracle": N_ORACLE, "batch_wall_ms": walls,
           "batch_event_ms": events, "warm_batch_ms": warm_wall,
           "qps": BATCH / (warm_wall / 1e3),
@@ -4868,7 +5001,7 @@ def main() -> int:
     approx_launches = counts.read()
     check(approx_launches["topk_scan"] == approx_launches["topk_merge"] == 1,
           "approx: scan or merge not launched")
-    cpu = step_on_cpu(hybrid_query_step_split, store, q, terms, **knobs)
+    cpu = step_on_cpu(store, q, terms, **knobs)
     n_agree, diff = compare_steps(out, cpu)
     exact_rows = outs[1][1]
     same_as_exact = float((out.rows.cpu() == exact_rows).all(dim=1)

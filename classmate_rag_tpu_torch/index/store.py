@@ -75,7 +75,8 @@ from classmate_rag_tpu_torch.metadata.validation import (
 from classmate_rag_tpu_torch.native import make_native_packer
 from classmate_rag_tpu_torch.ops.hybrid_step import (
     HybridBatchResult,
-    hybrid_query_step_split,
+    hybrid_query_step_split_packed,
+    pack_query_arrays,
 )
 from classmate_rag_tpu_torch.ops.topk import masked_topk, stable_topk
 from classmate_rag_tpu_torch.utils.numerics import NEG_INF
@@ -928,17 +929,23 @@ class IndexStore:
         split["offsets"] = offsets
         return True
 
-    def _split_query_tensors(self, q_terms: np.ndarray,
-                             q_counts: np.ndarray) -> Dict[str, torch.Tensor]:
+    def _split_query_arrays(self, q_terms: np.ndarray,
+                            q_counts: np.ndarray) -> Dict[str, np.ndarray]:
         """The batch's head union and tail segment table (base and
-        overlay segments alike), on the device."""
+        overlay segments alike), on the host."""
         split = self._sync_split()
-        qa = split_query_arrays(
+        return split_query_arrays(
             split["lut"], split["offsets"], q_terms, q_counts,
             r_cap=split["r_cap"],
             ov_offsets=split["ov_offsets"],
             ov_start=split["p_base"],
         )
+
+    def _split_query_tensors(self, q_terms: np.ndarray,
+                             q_counts: np.ndarray) -> Dict[str, torch.Tensor]:
+        """``_split_query_arrays`` and the query terms on the device, an
+        array a copy (``bm25_topk``'s inputs)."""
+        qa = self._split_query_arrays(q_terms, q_counts)
         qa = {k: qa[k] for k in STEP_COLUMNS}
         qa["q_tids"] = q_terms
         qa["q_counts"] = q_counts
@@ -1023,6 +1030,16 @@ class IndexStore:
             query_vecs, dtype=torch.float32
         ).to(self.device).contiguous()
 
+    def _host_to_device(self, host: torch.Tensor) -> torch.Tensor:
+        """A CPU tensor on the store's device. On CUDA the copy goes
+        through pinned memory from PyTorch's caching host allocator and
+        does not make the host wait for the stream (the allocator keeps
+        the pinned block until the copy has run); on the CPU it is the
+        tensor itself."""
+        if self.device.type == "cpu":
+            return host
+        return host.pin_memory().to(self.device, non_blocking=True)
+
     def dense_topk(
         self,
         query_vecs,                      # [Q, d] f32 (L2-normalized)
@@ -1083,7 +1100,7 @@ class IndexStore:
         args, kwargs = self.hybrid_step_inputs(
             query_vecs, query_terms_list, where, **knobs
         )
-        return hybrid_query_step_split(*args, **kwargs)
+        return hybrid_query_step_split_packed(*args, **kwargs)
 
     def hybrid_step_inputs(
         self,
@@ -1102,8 +1119,11 @@ class IndexStore:
         weight_bm25: float = 1.0,
         max_query_terms: int = 32,
     ) -> Tuple[tuple, Dict[str, Any]]:
-        """(args, kwargs) of ``hybrid_query_step_split`` for one batch:
-        the device tensors and the clamped knobs."""
+        """(args, kwargs) of ``hybrid_query_step_split_packed`` for one
+        batch: the device tensors, the batch's query metadata packed into
+        one i32 tensor (one host-to-device copy), and the statics and
+        clamped knobs. Query vectors already on the device stay there;
+        host ones make the batch's second copy."""
         dev = self._sync_device()
         bias = self._mask_bias(where)
         vpad = self.vocab_pad
@@ -1112,19 +1132,25 @@ class IndexStore:
             self.vocab, query_terms_list, max_query_terms
         )
         split = self._sync_split()
-        qa = self._split_query_tensors(q_terms, q_counts)
-        has_terms = torch.from_numpy(
-            np.any(q_terms >= 0, axis=1, keepdims=True)
-        ).to(self.device)
+        qa = self._split_query_arrays(q_terms, q_counts)
+        packed, statics = pack_query_arrays(
+            qa, q_terms, q_counts, np.any(q_terms >= 0, axis=1, keepdims=True)
+        )
+        if isinstance(query_vecs, torch.Tensor) and (
+            query_vecs.device.type != "cpu"
+        ):
+            q_vecs = self._queries(query_vecs)
+        else:
+            q_vecs = self._host_to_device(torch.as_tensor(
+                query_vecs, dtype=torch.float32).contiguous())
         args = (
             dev["emb"], split["tf_head"], split["post_rows"],
-            split["post_tfs"], dev["doc_len"], df, bias,
-            self._queries(query_vecs),
-            qa["h_slots"], qa["h_tids"], qa["u_starts"], qa["u_lens"],
-            qa["u_cols"], qa["t_tids"], qa["q_tids"], qa["q_counts"],
-            has_terms, dev["emb16"], dev["term_ids"], dev["tfs"],
+            split["post_tfs"], dev["doc_len"], df, bias, q_vecs,
+            self._host_to_device(torch.from_numpy(packed)),
+            dev["emb16"], dev["term_ids"], dev["tfs"],
         )
         kwargs = dict(
+            **statics,
             k_vector=min(k_vector, self.capacity),
             k_bm25=min(k_bm25, self.capacity),
             top_k=top_k,
@@ -1154,7 +1180,8 @@ class IndexStore:
         the way (bench.py reports ``B / this`` as ``device_ceiling_qps``
         beside its wall QPS). The batch's inputs are made once
         (``hybrid_step_inputs``); ``iters`` calls of
-        ``hybrid_query_step_split`` then run on them.
+        ``hybrid_query_step_split_packed``, the store's route, then run
+        on them.
 
         The timing is ``utils.profiling.held_stream_ms``'s: on CUDA each
         call is queued behind a spin kernel between two CUDA events, and
@@ -1167,7 +1194,7 @@ class IndexStore:
             query_vecs, query_terms_list, where, **knobs
         )
         t = held_stream_ms(
-            lambda: hybrid_query_step_split(*args, **kwargs), iters,
+            lambda: hybrid_query_step_split_packed(*args, **kwargs), iters,
             self.device,
         )
         self.device_timing = t["timing"]

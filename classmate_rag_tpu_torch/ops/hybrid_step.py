@@ -7,17 +7,18 @@ RRF — plain functions on tensors, with the batch dimension written out
 where the reference vmaps. Returns ``top_k`` rows per query with
 fused/vector/bm25 scores. ``hybrid_query_step`` is the same step with
 the gather-pass BM25 over the packed [N, L] term matrix, the reference
-of the sharded step; the store serves ``hybrid_query_step_split``.
-
-The reference's packed step (one i32 buffer for the batch metadata)
-exists to save round trips through a remote TPU link; here the arrays
-are passed directly and the outputs are the packed step's.
+of the sharded step. The store serves ``hybrid_query_step_split_packed``:
+the same step with the batch's query metadata (head union, tail segment
+table, query term ids and counts, has-terms flags) in one i32 buffer
+(``pack_query_arrays``), so that a batch makes one host-to-device copy
+of it, and ``unpack_query_arrays`` takes views of the one device tensor.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Dict, NamedTuple
 
+import numpy as np
 import torch
 
 from classmate_rag_tpu_torch.index.lexical import (
@@ -300,4 +301,69 @@ def hybrid_query_step_split(
         vec_rows, vec_dist, bm_rows, bm_vals,
         weight_vector=weight_vector, weight_bm25=weight_bm25,
         rrf_k=rrf_k, top_k=top_k,
+    )
+
+
+def pack_query_arrays(qa, q_terms, q_counts, has_terms):
+    """Concatenate a batch's query metadata into ONE i32 buffer: the six
+    ``STEP_COLUMNS`` of ``lexical.split_query_arrays`` (``qa``), then
+    ``q_terms`` [B, M], ``q_counts`` [B, M] f32 bit-cast to i32 and
+    ``has_terms`` [B, 1] widened to i32 — the reference's layout, element
+    for element. Returns (packed i32 [2H + 3U + T + 2BM + B], statics
+    {"h", "u", "t", "b", "m"} for ``hybrid_query_step_split_packed``)."""
+    b, m = q_terms.shape
+    parts = [
+        np.ascontiguousarray(qa["h_slots"], np.int32),
+        np.ascontiguousarray(qa["h_tids"], np.int32),
+        np.ascontiguousarray(qa["u_starts"], np.int32),
+        np.ascontiguousarray(qa["u_lens"], np.int32),
+        np.ascontiguousarray(qa["u_cols"], np.int32),
+        np.ascontiguousarray(qa["t_tids"], np.int32),
+        np.ascontiguousarray(q_terms, np.int32).ravel(),
+        np.ascontiguousarray(q_counts, np.float32).ravel().view(np.int32),
+        np.ascontiguousarray(has_terms, bool).ravel().astype(np.int32),
+    ]
+    statics = {"h": len(qa["h_slots"]), "u": len(qa["u_starts"]),
+               "t": len(qa["t_tids"]), "b": b, "m": m}
+    return np.concatenate(parts), statics
+
+
+def unpack_query_arrays(packed: torch.Tensor, *, h: int, u: int, t: int,
+                        b: int, m: int) -> Dict[str, torch.Tensor]:
+    """The arrays of ``pack_query_arrays`` as views of ``packed`` (slices
+    and reshapes: no copy, no wait for the device). ``q_counts`` comes
+    back bit-cast to f32, ``has_terms`` as bool [B, 1]."""
+    out, o = {}, 0
+    for name, n in (("h_slots", h), ("h_tids", h), ("u_starts", u),
+                    ("u_lens", u), ("u_cols", u), ("t_tids", t),
+                    ("q_tids", b * m), ("q_counts", b * m),
+                    ("has_terms", b)):
+        out[name] = packed[o: o + n]
+        o += n
+    out["q_tids"] = out["q_tids"].reshape(b, m)
+    out["q_counts"] = out["q_counts"].view(torch.float32).reshape(b, m)
+    out["has_terms"] = (out["has_terms"] > 0).reshape(b, 1)
+    return out
+
+
+def hybrid_query_step_split_packed(
+    emb, tf_head, post_rows, post_tfs, doc_len, df, mask_bias,
+    q_vecs,         # [B, d] f32
+    packed,         # i32 [L] from pack_query_arrays, on the step's device
+    emb16=None,     # optional [N, d] f16 rescore master
+    term_ids=None,  # optional [N, L] i32 + [N, L] u8: the fast-BM25
+    tfs=None,       #   exact-rescore source (see the unpacked step)
+    *,
+    h: int, u: int, t: int, b: int, m: int,
+    **knobs,
+) -> HybridBatchResult:
+    """``hybrid_query_step_split`` with the batch metadata in one buffer
+    (one host-to-device copy a batch: the serving hot path). ``knobs``
+    are the unpacked step's keyword arguments."""
+    qa = unpack_query_arrays(packed, h=h, u=u, t=t, b=b, m=m)
+    return hybrid_query_step_split(
+        emb, tf_head, post_rows, post_tfs, doc_len, df, mask_bias, q_vecs,
+        qa["h_slots"], qa["h_tids"], qa["u_starts"], qa["u_lens"],
+        qa["u_cols"], qa["t_tids"], qa["q_tids"], qa["q_counts"],
+        qa["has_terms"], emb16, term_ids, tfs, **knobs,
     )

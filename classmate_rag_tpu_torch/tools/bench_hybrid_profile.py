@@ -3,7 +3,8 @@
 Builds the bench corpus at ``BENCH_CHUNKS`` (or ``--chunks``) into a
 store with the bench's knobs (``DENSE_RESCORE``, ``DENSE_RESCORE_POOL``,
 ``DENSE_SELECT``), makes one batch's inputs (``BENCH_BATCH`` queries,
-``IndexStore.hybrid_step_inputs``), and times each stage of
+``IndexStore.hybrid_step_inputs``: the packed metadata buffer, unpacked
+once into views by ``unpack_query_arrays``), and times each stage of
 ``hybrid_query_step_split`` on them alone:
 
   dense_mm          the bf16 [B, d] x [d, N] product (a library
@@ -15,6 +16,8 @@ store with the bench's knobs (``DENSE_RESCORE``, ``DENSE_RESCORE_POOL``,
                     and bm25_tail with the other part emptied
   bm25_topk         the core plus the exact selection (``bm25_select``)
   full_step         ``hybrid_query_step_split`` on the exact route
+  full_step_packed  ``hybrid_query_step_split_packed`` (the store's
+                    step) on the packed buffer, exact route
   bm25_fast         the approx route's fast core plus ``bm25_select``
                     with its exact pool rescore (``bm25_rescore_pool``)
   full_step_approx  the step on the approx route
@@ -23,6 +26,15 @@ The approx stages need the f16 slab (the store's rescore). The port's
 scan serves both routes, so the approx route's dense selection and
 dense branch are ``dense_topk`` and ``dense_full``: their keys
 (``dense_approx_sel``, ``dense_full_approx``) say ``same_as``.
+
+``host`` splits one whole ``hybrid_topk_batch`` (one caller, warm) on
+the host's clock: making the inputs (tokens to ids, the split query
+arrays, the pack and its upload), queueing the step's ops, and the
+fetch of the rows, which waits for the card; and, from a torch.profiler
+trace of one such batch, its host-to-device copies and bytes, the torch
+ops and kernels it runs, the host time inside torch ops beside the
+traced span from its first op to its last (both with the profiler's
+overhead in them) and the card's busy time.
 
 Each stage's time is ``utils.profiling.held_stream_ms``'s: CUDA-event
 time of calls queued behind a spin kernel (``held``), or, where a call
@@ -93,15 +105,24 @@ def stage_fns(store, queries, k: int = 8, pool: int = 24):
     )
     from classmate_rag_tpu_torch.ops.hybrid_step import (
         _bm25_postprocess, _dense_branch, hybrid_query_step_split,
+        hybrid_query_step_split_packed, unpack_query_arrays,
     )
     from classmate_rag_tpu_torch.ops.topk import masked_topk
 
-    args, kw = store.hybrid_step_inputs(
+    packed_args, packed_kw = store.hybrid_step_inputs(
         np.stack([q for q, _t in queries]), [t for _q, t in queries], None,
         k_vector=k, k_bm25=k, top_k=k, pool=pool)
     (emb, tf_head, post_rows, post_tfs, doc_len, df, bias, q_vecs,
-     h_slots, h_tids, u_starts, u_lens, u_cols, t_tids, q_tids, q_counts,
-     has_terms, emb16, term_ids, tfs) = args
+     packed, emb16, term_ids, tfs) = packed_args
+    statics = {s: packed_kw[s] for s in ("h", "u", "t", "b", "m")}
+    kw = {k: v for k, v in packed_kw.items() if k not in statics}
+    qa = unpack_query_arrays(packed, **statics)
+    h_slots, h_tids, u_starts, u_lens, u_cols, t_tids = (
+        qa[c] for c in ("h_slots", "h_tids", "u_starts", "u_lens", "u_cols",
+                        "t_tids"))
+    q_tids, q_counts, has_terms = qa["q_tids"], qa["q_counts"], qa["has_terms"]
+    args = (*packed_args[:8], h_slots, h_tids, u_starts, u_lens, u_cols,
+            t_tids, q_tids, q_counts, has_terms, emb16, term_ids, tfs)
     vpad, r_cap = kw["vocab_pad"], kw["r_cap"]
     rp = kw["rescore_pool"]
     shape = {
@@ -149,6 +170,8 @@ def stage_fns(store, queries, k: int = 8, pool: int = 24):
         "bm25_core": lambda: bm25(),
         "bm25_topk": lambda: bm25(select="exact"),
         "full_step": step("exact"),
+        "full_step_packed": lambda: hybrid_query_step_split_packed(
+            *packed_args, **{**packed_kw, "select": "exact"}),
     }
     if emb16 is not None and term_ids is not None:
         fns["bm25_fast"] = lambda: bm25(fast=True, select="approx")
@@ -156,9 +179,84 @@ def stage_fns(store, queries, k: int = 8, pool: int = 24):
     return shape, fns
 
 
+def _torch_op_ms(events) -> float:
+    """Host time inside torch ops: the union of the trace's outermost
+    ``cpu_op`` spans, thread by thread, in ms."""
+    total, ends = 0.0, {}
+    for e in sorted((e for e in events if e.get("cat") == "cpu_op"),
+                    key=lambda e: e["ts"]):
+        tid, end = e["tid"], e["ts"] + e["dur"]
+        if e["ts"] >= ends.get(tid, float("-inf")):
+            total += e["dur"]
+            ends[tid] = end
+        elif end > ends[tid]:
+            total += end - ends[tid]
+            ends[tid] = end
+    return total / 1e3
+
+
+def _span_ms(events) -> float:
+    """From the first torch op's start to the last one's end, in ms: the
+    traced batch's host time, profiler overhead included."""
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    return (max(e["ts"] + e["dur"] for e in ops)
+            - min(e["ts"] for e in ops)) / 1e3
+
+
+def host_batch(store, queries, iters: int = ITERS, k: int = 8,
+               pool: int = 24) -> dict:
+    """One caller's ``hybrid_topk_batch`` split on the host's clock, the
+    medians over ``iters`` warm batches (``inputs_ms``, ``queue_ms``,
+    ``fetch_ms``, ``wall_ms``), and the counts of a trace of one batch."""
+    from classmate_rag_tpu_torch.device import synchronize
+    from classmate_rag_tpu_torch.ops.hybrid_step import (
+        hybrid_query_step_split_packed,
+    )
+    from classmate_rag_tpu_torch.utils.profiling import (
+        chrome_events, h2d_copies,
+    )
+
+    q = np.stack([qv for qv, _t in queries])
+    terms = [t for _q, t in queries]
+    knobs = dict(k_vector=k, k_bm25=k, top_k=k, pool=pool)
+
+    def batch():
+        return store.hybrid_topk_batch(q, terms, None, **knobs).rows.cpu()
+
+    batch()
+    parts = {"inputs_ms": [], "queue_ms": [], "fetch_ms": [], "wall_ms": []}
+    for _ in range(iters):
+        synchronize(store.device)
+        t0 = time.perf_counter()
+        args, kw = store.hybrid_step_inputs(q, terms, None, **knobs)
+        t1 = time.perf_counter()
+        out = hybrid_query_step_split_packed(*args, **kw)
+        t2 = time.perf_counter()
+        out.rows.cpu()
+        t3 = time.perf_counter()
+        for key, a, b in (("inputs_ms", t0, t1), ("queue_ms", t1, t2),
+                          ("fetch_ms", t2, t3), ("wall_ms", t0, t3)):
+            parts[key].append((b - a) * 1e3)
+    out = {key: float(np.median(v)) for key, v in parts.items()}
+    events = chrome_events(batch)
+    h2d = h2d_copies(events)
+    out.update(
+        h2d_copies=h2d["copies"], h2d_bytes=h2d["bytes"],
+        h2d_kinds=h2d["kinds"],
+        torch_ops=sum(e.get("cat") == "cpu_op" for e in events),
+        kernels=sum(e.get("cat") == "kernel" for e in events),
+        torch_op_ms=_torch_op_ms(events),
+        traced_span_ms=_span_ms(events),
+        device_busy_ms=sum(e["dur"] for e in events
+                           if e.get("cat") == "kernel") / 1e3,
+    )
+    return out
+
+
 def profile(store, queries, iters: int = ITERS) -> dict:
-    """Every stage of ``stage_fns`` timed alone, and the store's own
-    ``device_seconds_per_batch`` on the same batch (its route)."""
+    """Every stage of ``stage_fns`` timed alone, the store's own
+    ``device_seconds_per_batch`` on the same batch (its route), and the
+    host's share of one whole batch (``host_batch``)."""
     from classmate_rag_tpu_torch.utils.profiling import held_stream_ms
 
     shape, fns = stage_fns(store, queries)
@@ -174,7 +272,8 @@ def profile(store, queries, iters: int = ITERS) -> dict:
             "device": str(store.device), "select_mode": store.select_mode,
             "iters": iters, "shape": shape, "stages": stages,
             "step_device_ms": step_s * 1e3,
-            "step_device_timing": store.device_timing}
+            "step_device_timing": store.device_timing,
+            "host": host_batch(store, queries, iters)}
 
 
 def main(argv=None) -> int:

@@ -7,8 +7,8 @@ layout, df, bias), a cold nvcc build of every kernel into a temporary
 build directory (``kernel_build_s``: what a checkout without
 ``ops/build/`` pays) and the load of the cached libraries
 (``kernel_load_s``), one small CUDA launch's first and second call (the
-JAX tool's trivial program), then ``hybrid_query_step_split``'s first
-and second call on the uploaded inputs. Each time ends with a
+JAX tool's trivial program), then ``hybrid_query_step_split_packed``'s
+first and second call on the uploaded inputs. Each time ends with a
 synchronize (or the host fetch of the rows).
 
     INDEX_DIR=/tmp/prod1m BM25_DIR=/tmp/prod1m/bm25 \\
@@ -60,7 +60,7 @@ def probe(device=None, runtime=None) -> dict:
     import torch
 
     from classmate_rag_tpu_torch.ops.hybrid_step import (
-        hybrid_query_step_split,
+        hybrid_query_step_split_packed,
     )
     from classmate_rag_tpu_torch.pipeline.runtime import get_runtime
 
@@ -109,9 +109,9 @@ def probe(device=None, runtime=None) -> dict:
         np.zeros((1, store.dim), np.float32),
         [["w3", "w17", "w200", "w1100"]], None)
     timed("step_first_call_s",
-          lambda: hybrid_query_step_split(*args, **kw).rows.cpu())
+          lambda: hybrid_query_step_split_packed(*args, **kw).rows.cpu())
     timed("step_second_call_s",
-          lambda: hybrid_query_step_split(*args, **kw).rows.cpu())
+          lambda: hybrid_query_step_split_packed(*args, **kw).rows.cpu())
     return report
 
 

@@ -6,18 +6,24 @@ CUDA activities) and writes a Chrome trace of any code region (ingest, a
 query batch, decode) into ``dir``. ``Throughput`` turns (bytes, flops,
 seconds) into GB/s, TFLOP/s, memory-bandwidth share and MFU against the
 card's published peaks, the table ``chip_smoke.py`` takes its bounds
-from.
+from. ``chrome_events(call)`` returns one call's trace events, and
+``h2d_copies(events)`` counts the host-to-device copies among them;
+``HostToDeviceOps`` counts the torch ops that make such copies, without
+the profiler.
 """
 
 from __future__ import annotations
 
+import json
+import tempfile
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Callable, Dict, Iterator, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 # Published dense peaks (NVIDIA data sheets): bf16 tensor-core TFLOP/s,
 # memory GB/s, f32 TFLOP/s outside the tensor cores, int8 tensor-core
@@ -99,6 +105,35 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
     prof.export_chrome_trace(str(out / f"trace-{time.time_ns()}.json"))
 
 
+def chrome_events(call: Callable[[], Any]) -> List[dict]:
+    """The Chrome-trace events (``traceEvents``) of one ``call()`` under
+    torch.profiler: CPU activities, and CUDA ones when a card is present
+    (a synchronize then ends the session)."""
+    with tempfile.TemporaryDirectory() as d:
+        with trace(d):
+            call()
+        (path,) = Path(d).glob("trace-*.json")
+        with open(path) as f:
+            return json.load(f)["traceEvents"]
+
+
+def h2d_copies(events: List[dict]) -> Dict[str, Any]:
+    """The host-to-device copies among Chrome-trace ``events``: the
+    device's ``Memcpy HtoD (<source> -> Device)`` events. Returns
+    {"copies", "bytes" (None where an event carries no byte count),
+    "kinds": {event name: count}}."""
+    kinds: Dict[str, int] = {}
+    n_bytes: Optional[int] = 0
+    for e in events:
+        name = e.get("name", "")
+        if e.get("ph") != "X" or not name.startswith("Memcpy HtoD"):
+            continue
+        kinds[name] = kinds.get(name, 0) + 1
+        b = e.get("args", {}).get("bytes")
+        n_bytes = None if b is None or n_bytes is None else n_bytes + int(b)
+    return {"copies": sum(kinds.values()), "bytes": n_bytes, "kinds": kinds}
+
+
 def held_stream_ms(call: Callable[[], Any], iters: int,
                    device: Any) -> Dict[str, Any]:
     """The device time of one ``call()`` on ``device``, with the host out
@@ -164,4 +199,34 @@ def held_stream_ms(call: Callable[[], Any], iters: int,
         return out
 
 
-__all__ = ["Throughput", "device_peaks", "held_stream_ms", "trace"]
+class HostToDeviceOps(TorchDispatchMode):
+    """While on (``with HostToDeviceOps() as ops:``), counts the torch ops
+    that copy a CPU tensor to another device (``_to_copy`` and ``copy_``):
+    ``copies`` and ``bytes`` (the CPU tensors' sizes). It reads the
+    dispatcher, not the device: a copy made below it (a tensor built
+    from a Python list straight on the device, a library's own
+    ``cudaMemcpy``) is not counted, which a trace's ``h2d_copies`` would
+    show. Unlike a trace it loses nothing as the process ages."""
+
+    def __init__(self):
+        super().__init__()
+        self.copies = 0
+        self.bytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func is torch.ops.aten._to_copy.default:
+            src, dst = args[0], out
+        elif func is torch.ops.aten.copy_.default:
+            dst, src = args[0], args[1]
+        else:
+            return out
+        if (isinstance(src, torch.Tensor) and src.device.type == "cpu"
+                and dst.device.type != "cpu"):
+            self.copies += 1
+            self.bytes += src.numel() * src.element_size()
+        return out
+
+
+__all__ = ["HostToDeviceOps", "Throughput", "chrome_events", "device_peaks",
+           "h2d_copies", "held_stream_ms", "trace"]

@@ -30,6 +30,10 @@ Tolerances:
 - the int8 scan's stage 1 (``ops/quant.py``, ``torch._int_mm`` with its
   query and width padding): int32 scores and candidates EQUAL to the
   CPU's int32 product (exact integer sums).
+- the store's packed step (one pinned, non-blocking upload of the
+  batch metadata) vs the unpacked step on the same arrays uploaded one
+  by one: rows EQUAL, scores within 1e-6 (the same ops on the same
+  values; the scan and merge kernels run in both).
 """
 
 import numpy as np
@@ -535,3 +539,60 @@ def test_int8_scores_on_the_card_any_corpus_rows(cuda, n):
     torch.cuda.synchronize()
     assert got.shape == (5, n)
     assert torch.equal(got.cpu(), int8_scores(q8, a))
+
+
+@pytest.mark.cuda
+def test_packed_store_step_equals_unpacked_on_card(cuda):
+    """``hybrid_topk_batch`` on 3 batches queued with no sync in between
+    (each a fresh pinned buffer, copied without the host waiting) gives
+    the rows of the unpacked step over the same arrays, each uploaded
+    pinned and non-blocking on its own."""
+    from classmate_rag_tpu_torch.index.lexical import (
+        STEP_COLUMNS,
+        pack_query_terms,
+    )
+    from classmate_rag_tpu_torch.index.store import IndexStore
+    from classmate_rag_tpu_torch.ops.hybrid_step import (
+        hybrid_query_step_split,
+    )
+
+    rng = np.random.default_rng(7)
+    n, d, b = 20_000, 768, 64
+    words = [f"w{i}" for i in range(3000)]
+    p = 1.0 / np.arange(1, 3001)
+    p /= p.sum()
+    docs = [list(rng.choice(words, size=40, p=p)) for _ in range(n)]
+    emb = _rand(n, d, seed=8)
+    store = IndexStore(d, slab_rows=4096, terms_per_chunk=64, device=cuda)
+    store.upsert([f"c{i}" for i in range(n)], emb, docs,
+                 [{} for _ in range(n)])
+    batches = []
+    for j in range(3):
+        which = rng.integers(0, n, size=b)
+        q = emb[which] + 0.1 * _rand(b, d, seed=9 + j)
+        batches.append((q / np.linalg.norm(q, axis=1, keepdims=True),
+                        [docs[i][:4] for i in which]))
+    store.hybrid_topk_batch(*batches[0]).rows.cpu()     # place the store
+    outs = [store.hybrid_topk_batch(q, terms) for q, terms in batches]
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(
+            cuda, non_blocking=True)
+
+    for (q, terms), out in zip(batches, outs):
+        args, kw = store.hybrid_step_inputs(q, terms)
+        knobs = {k: v for k, v in kw.items()
+                 if k not in ("h", "u", "t", "b", "m")}
+        q_terms, q_counts = pack_query_terms(store.vocab, terms, 32)
+        qa = store._split_query_arrays(q_terms, q_counts)
+        want = hybrid_query_step_split(
+            *args[:7], up(q.astype(np.float32)),
+            *(up(qa[c]) for c in STEP_COLUMNS), up(q_terms), up(q_counts),
+            up(np.any(q_terms >= 0, axis=1, keepdims=True)), *args[9:],
+            **knobs)
+        assert torch.equal(out.rows.cpu(), want.rows.cpu())
+        for name in ("fused", "vec_dist", "bm25_score"):
+            torch.testing.assert_close(getattr(out, name).cpu(),
+                                       getattr(want, name).cpu(),
+                                       rtol=0, atol=1e-6, equal_nan=True)
+        assert (out.rows >= 0).all()

@@ -66,3 +66,50 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     events = json.loads(files[0].read_text())["traceEvents"]
     assert any("mm" in str(e.get("name", "")) for e in events)
     assert any("mm" in e.key for e in prof.key_averages())
+
+
+def test_chrome_events_of_one_call():
+    events = profiling.chrome_events(
+        lambda: (torch.randn(32, 32) @ torch.randn(32, 32)).sum())
+    assert any("mm" in str(e.get("name", "")) for e in events)
+    assert profiling.h2d_copies(events) == {"copies": 0, "bytes": 0,
+                                            "kinds": {}}
+
+
+def test_h2d_copies_counts_the_device_copies_of_a_trace():
+    """The device's ``Memcpy HtoD`` events, pinned and pageable alike;
+    host-side calls, device-to-host copies and instant events are not
+    copies to the device."""
+    def ev(name, ph="X", **args):
+        return {"name": name, "ph": ph, "cat": "gpu_memcpy", "args": args}
+
+    events = [
+        ev("Memcpy HtoD (Pinned -> Device)", bytes=4096),
+        ev("Memcpy HtoD (Pageable -> Device)", bytes=12),
+        ev("Memcpy HtoD (Pinned -> Device)", bytes=100),
+        ev("Memcpy DtoH (Device -> Pageable)", bytes=64),
+        ev("Memcpy HtoD (Pinned -> Device)", ph="i", bytes=8),
+        {"name": "cudaMemcpyAsync", "ph": "X", "cat": "cuda_runtime"},
+    ]
+    assert profiling.h2d_copies(events) == {
+        "copies": 3, "bytes": 4208,
+        "kinds": {"Memcpy HtoD (Pinned -> Device)": 2,
+                  "Memcpy HtoD (Pageable -> Device)": 1}}
+    events.append(ev("Memcpy HtoD (Pinned -> Device)"))
+    assert profiling.h2d_copies(events)["bytes"] is None
+
+
+def test_host_to_device_ops_counts_copies_off_the_host():
+    """CPU-to-other-device copies by ``.to`` and ``copy_`` count, with the
+    CPU tensor's bytes; CPU work, device-to-device and device-to-host
+    copies do not ('meta' stands for the card here)."""
+    a = torch.ones(3, 4)
+    with profiling.HostToDeviceOps() as ops:
+        (a * 2).sum()
+        on_dev = a.to("meta", non_blocking=True)
+        dst = torch.empty(5, dtype=torch.int32, device="meta")
+        dst.copy_(torch.arange(5, dtype=torch.int32))
+        on_dev.to("meta")
+        torch.empty(3, device="meta").to(torch.float64)
+        a.to(torch.float64)
+    assert (ops.copies, ops.bytes) == (2, 3 * 4 * 4 + 5 * 4)

@@ -24,7 +24,7 @@ from classmate_rag_tpu_torch.index import lexical as tlex
 from classmate_rag_tpu_torch.index import store as tstore_mod
 from classmate_rag_tpu_torch.ops.hybrid_step import (
     hybrid_query_step,
-    hybrid_query_step_split,
+    hybrid_query_step_split_packed,
 )
 
 try:
@@ -177,7 +177,7 @@ def test_nonsplit_step_equals_split_step(zipf_store, where):
     terms = [t for _q, t in queries]
     knobs = dict(k_vector=8, k_bm25=8, top_k=8, pool=24)
     args, kwargs = store.hybrid_step_inputs(q, terms, where, **knobs)
-    split = hybrid_query_step_split(*args, **kwargs)
+    split = hybrid_query_step_split_packed(*args, **kwargs)
     dev = store._sync_device()
     q_terms, q_counts = tlex.pack_query_terms(store.vocab, terms, 32)
     whole = hybrid_query_step(
@@ -349,11 +349,11 @@ def test_step_never_waits_for_the_host_on_card(card_store, select, where):
     try:
         args, kwargs = store.hybrid_step_inputs(q, terms, where)
         assert kwargs["select"] == select
-        want = hybrid_query_step_split(*args, **kwargs).rows.cpu()
+        want = hybrid_query_step_split_packed(*args, **kwargs).rows.cpu()
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            out = hybrid_query_step_split(*args, **kwargs)
+            out = hybrid_query_step_split_packed(*args, **kwargs)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         assert torch.equal(out.rows.cpu(), want)

@@ -244,6 +244,8 @@ def test_profile_stages_equal_the_step(store, corpus):
         want = fns[step]()
         for g, w in zip(got, want):
             _same(g, w)
+    for g, w in zip(fns["full_step_packed"](), fns["full_step"]()):
+        _same(g, w)
     _same(fns["bm25_head"]() + fns["bm25_tail"](), fns["bm25_core"]())
     vals, rows = fns["dense_topk"]()
     assert rows.shape == (len(queries), store.rescore_pool)
@@ -252,6 +254,10 @@ def test_profile_stages_equal_the_step(store, corpus):
     for name in fns:
         assert out["stages"][name]["ms"] > 0
         assert out["stages"][name]["timing"] == "wall"
+    host = out["host"]
+    assert host["wall_ms"] >= host["inputs_ms"] > 0
+    assert host["h2d_copies"] == 0 and host["torch_ops"] > 0
+    assert 0 < host["torch_op_ms"] <= host["traced_span_ms"]
 
 
 def test_bench_serve_with_a_mutation_storm(tmp_path, monkeypatch):
