@@ -1,0 +1,4 @@
+"""One reader a metric, found by the metric's name in BENCHMARK.json:
+``<name>.py`` with ``read(ctx)``, which returns the value, or None when
+the run holds nothing to read (the harness then leaves the metric out).
+``ctx`` is ``rag_bench.run.Context``."""
