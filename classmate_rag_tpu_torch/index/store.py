@@ -79,6 +79,7 @@ from classmate_rag_tpu_torch.ops.hybrid_step import (
     pack_query_arrays,
 )
 from classmate_rag_tpu_torch.ops.topk import masked_topk, stable_topk
+from classmate_rag_tpu_torch.utils.metrics import metrics
 from classmate_rag_tpu_torch.utils.numerics import NEG_INF
 from classmate_rag_tpu_torch.utils.numerics import round_up as _round_up
 from classmate_rag_tpu_torch.utils.profiling import held_stream_ms
@@ -224,6 +225,10 @@ class IndexStore:
         self.split_full_builds = 0
         self.split_snapshot_restores = 0
         self.df_full_builds = 0
+        # Filtered-df LRU lookups that found their filter, and that built
+        # its histogram (unfiltered queries count in neither).
+        self.df_filter_cache_hits = 0
+        self.df_filter_cache_misses = 0
         # v2 snapshot adoption: the persisted split layout (host mmaps,
         # consumed once by _sync_split_locked) and the rows the persisted
         # deltas touched since it was built (row -> pre-delta
@@ -459,8 +464,10 @@ class IndexStore:
         key = (wanted.tobytes(), tag_want.tobytes(), vpad)
         hit = self._df_filter_cache.get(key)
         if hit is not None:
+            self.df_filter_cache_hits += 1
             self._df_filter_cache.move_to_end(key)
             return hit
+        self.df_filter_cache_misses += 1
         dev = self._sync_device()
         df = subset_df(dev["term_ids"], dev["tfs"], bias == 0.0, vpad)
         self._df_filter_cache[key] = df
@@ -929,11 +936,14 @@ class IndexStore:
         split["offsets"] = offsets
         return True
 
-    def _split_query_arrays(self, q_terms: np.ndarray,
-                            q_counts: np.ndarray) -> Dict[str, np.ndarray]:
+    def _split_query_arrays(self, q_terms: np.ndarray, q_counts: np.ndarray,
+                            split: Optional[Dict[str, Any]] = None,
+                            ) -> Dict[str, np.ndarray]:
         """The batch's head union and tail segment table (base and
-        overlay segments alike), on the host."""
-        split = self._sync_split()
+        overlay segments alike), on the host, against ``split`` (the
+        layout the step will read; by default the synced one)."""
+        if split is None:
+            split = self._sync_split()
         return split_query_arrays(
             split["lut"], split["offsets"], q_terms, q_counts,
             r_cap=split["r_cap"],
@@ -1096,11 +1106,16 @@ class IndexStore:
         **knobs: Any,
     ) -> HybridBatchResult:
         """Fused batched hybrid query; the result stays on the device
-        (the caller fetches it). ``knobs`` as in ``hybrid_step_inputs``."""
-        args, kwargs = self.hybrid_step_inputs(
-            query_vecs, query_terms_list, where, **knobs
-        )
-        return hybrid_query_step_split_packed(*args, **kwargs)
+        (the caller fetches it). ``knobs`` as in ``hybrid_step_inputs``.
+        While ``metrics.tracing()`` is on, the call records the span
+        ``store.batch`` around ``store.inputs`` and ``step``, the step's
+        queueing."""
+        with metrics.span("store.batch"):
+            args, kwargs = self.hybrid_step_inputs(
+                query_vecs, query_terms_list, where, **knobs
+            )
+            with metrics.span("step"):
+                return hybrid_query_step_split_packed(*args, **kwargs)
 
     def hybrid_step_inputs(
         self,
@@ -1123,31 +1138,51 @@ class IndexStore:
         batch: the device tensors, the batch's query metadata packed into
         one i32 tensor (one host-to-device copy), and the statics and
         clamped knobs. Query vectors already on the device stay there;
-        host ones make the batch's second copy."""
-        dev = self._sync_device()
-        bias = self._mask_bias(where)
-        vpad = self.vocab_pad
-        df = self._df_for_where(where, bias, vpad)
-        q_terms, q_counts = pack_query_terms(
-            self.vocab, query_terms_list, max_query_terms
-        )
-        split = self._sync_split()
-        qa = self._split_query_arrays(q_terms, q_counts)
-        packed, statics = pack_query_arrays(
-            qa, q_terms, q_counts, np.any(q_terms >= 0, axis=1, keepdims=True)
-        )
-        if isinstance(query_vecs, torch.Tensor) and (
-            query_vecs.device.type != "cpu"
-        ):
-            q_vecs = self._queries(query_vecs)
-        else:
-            q_vecs = self._host_to_device(torch.as_tensor(
-                query_vecs, dtype=torch.float32).contiguous())
+        host ones make the batch's second copy.
+
+        While ``metrics.tracing()`` is on it records ``store.inputs``
+        around its stages ``store.inputs.sync`` (device tensors and split
+        layout, synced once: the split arrays index the layout passed to
+        the step), ``.mask``, ``.df``, ``.terms``, ``.split`` (counts
+        ``tail_postings``, the live tail segments' posting entries, and
+        ``tail_slots``, live segments × ``r_cap``, from the host arrays)
+        and ``.pack`` (the buffer and the copies)."""
+        with metrics.span("store.inputs"):
+            with metrics.span("store.inputs.sync"):
+                dev = self._sync_device()
+                split = self._sync_split()
+            with metrics.span("store.inputs.mask"):
+                bias = self._mask_bias(where)
+            vpad = self.vocab_pad
+            with metrics.span("store.inputs.df"):
+                df = self._df_for_where(where, bias, vpad)
+            with metrics.span("store.inputs.terms"):
+                q_terms, q_counts = pack_query_terms(
+                    self.vocab, query_terms_list, max_query_terms
+                )
+            with metrics.span("store.inputs.split") as sp:
+                qa = self._split_query_arrays(q_terms, q_counts, split)
+                if sp is not None:
+                    sp.count(tail_postings=int(qa["u_lens"].sum()),
+                             tail_slots=int((qa["u_lens"] > 0).sum())
+                             * split["r_cap"])
+            with metrics.span("store.inputs.pack"):
+                packed, statics = pack_query_arrays(
+                    qa, q_terms, q_counts,
+                    np.any(q_terms >= 0, axis=1, keepdims=True)
+                )
+                if isinstance(query_vecs, torch.Tensor) and (
+                    query_vecs.device.type != "cpu"
+                ):
+                    q_vecs = self._queries(query_vecs)
+                else:
+                    q_vecs = self._host_to_device(torch.as_tensor(
+                        query_vecs, dtype=torch.float32).contiguous())
+                packed_dev = self._host_to_device(torch.from_numpy(packed))
         args = (
             dev["emb"], split["tf_head"], split["post_rows"],
             split["post_tfs"], dev["doc_len"], df, bias, q_vecs,
-            self._host_to_device(torch.from_numpy(packed)),
-            dev["emb16"], dev["term_ids"], dev["tfs"],
+            packed_dev, dev["emb16"], dev["term_ids"], dev["tfs"],
         )
         kwargs = dict(
             **statics,

@@ -36,6 +36,7 @@ from classmate_rag_tpu_torch.ops.topk import (
     masked_topk,
     stable_topk,
 )
+from classmate_rag_tpu_torch.utils.metrics import metrics
 from classmate_rag_tpu_torch.utils.numerics import NEG_INF
 
 
@@ -272,36 +273,44 @@ def hybrid_query_step_split(
     select: str = "exact",
 ) -> HybridBatchResult:
     """The fused step with split-frequency BM25 (head matmul + tail
-    postings); all tensors on one device."""
-    vec_rows, vec_dist = _dense_branch(
-        emb, mask_bias, q_vecs,
-        k_vector=k_vector, pool=pool, use_mmr=use_mmr, mmr_lambda=mmr_lambda,
-        emb16=emb16, rescore_pool=rescore_pool,
-    )
-    keep, n_sub, avgdl = subset_stats(mask_bias, doc_len)
-    idf = okapi_idf(df, n_sub)
-    # Fast BM25: approx mode + packed rows available → bf16-rounded sat
-    # matrices, with the exact pool rescore restoring final ranks.
-    fast = select == "approx" and term_ids is not None
-    bm_scores = bm25_split_score_core(
-        tf_head, post_rows, post_tfs, doc_len, keep, idf, avgdl,
-        h_slots, h_tids, u_starts, u_lens, u_cols, t_tids,
-        q_tids, q_counts,
-        vocab_pad=vocab_pad, r_cap=r_cap, fast=fast,
-    )
+    postings); all tensors on one device. While ``metrics.tracing()`` is
+    on, each stage records the span that queues its ops: ``step.dense``
+    (scan, f16 rescore, MMR), ``step.bm25_core`` (subset statistics, idf,
+    the head and tail scores), ``step.bm25_select`` (the selection, the
+    approx route's exact pool rescore, the finish) and ``step.fuse``."""
+    with metrics.span("step.dense"):
+        vec_rows, vec_dist = _dense_branch(
+            emb, mask_bias, q_vecs,
+            k_vector=k_vector, pool=pool, use_mmr=use_mmr,
+            mmr_lambda=mmr_lambda, emb16=emb16, rescore_pool=rescore_pool,
+        )
+    with metrics.span("step.bm25_core"):
+        keep, n_sub, avgdl = subset_stats(mask_bias, doc_len)
+        idf = okapi_idf(df, n_sub)
+        # Fast BM25: approx mode + packed rows available → bf16-rounded
+        # sat matrices, with the exact pool rescore restoring final ranks.
+        fast = select == "approx" and term_ids is not None
+        bm_scores = bm25_split_score_core(
+            tf_head, post_rows, post_tfs, doc_len, keep, idf, avgdl,
+            h_slots, h_tids, u_starts, u_lens, u_cols, t_tids,
+            q_tids, q_counts,
+            vocab_pad=vocab_pad, r_cap=r_cap, fast=fast,
+        )
     rescore_ctx = (
         (term_ids, tfs, doc_len, avgdl, idf, q_tids, q_counts)
         if fast else None
     )
-    bm_rows, bm_vals = _bm25_postprocess(
-        bm_scores, mask_bias, has_terms, k_bm25=k_bm25, select=select,
-        rescore_ctx=rescore_ctx,
-    )
-    return _fuse(
-        vec_rows, vec_dist, bm_rows, bm_vals,
-        weight_vector=weight_vector, weight_bm25=weight_bm25,
-        rrf_k=rrf_k, top_k=top_k,
-    )
+    with metrics.span("step.bm25_select"):
+        bm_rows, bm_vals = _bm25_postprocess(
+            bm_scores, mask_bias, has_terms, k_bm25=k_bm25, select=select,
+            rescore_ctx=rescore_ctx,
+        )
+    with metrics.span("step.fuse"):
+        return _fuse(
+            vec_rows, vec_dist, bm_rows, bm_vals,
+            weight_vector=weight_vector, weight_bm25=weight_bm25,
+            rrf_k=rrf_k, top_k=top_k,
+        )
 
 
 def pack_query_arrays(qa, q_terms, q_counts, has_terms):

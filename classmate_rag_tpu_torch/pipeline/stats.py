@@ -47,12 +47,15 @@ def index_stats(runtime: Optional[Runtime] = None) -> Dict[str, object]:
         "emb_cache_bytes": _disk_usage(Path(cfg.emb_cache_dir)),
         # O(corpus)-path counters: operators (and the serve bench's
         # mutation-under-load stage) assert small deltas never take the
-        # full-rebuild routes.
+        # full-rebuild routes. The filtered-df cache's hits and misses
+        # (each miss a histogram over the corpus) are the port's own.
         "maintenance": {
             "device_full_uploads": rt.store.device_full_uploads,
             "split_full_builds": rt.store.split_full_builds,
             "split_snapshot_restores": rt.store.split_snapshot_restores,
             "df_full_builds": rt.store.df_full_builds,
+            "df_filter_cache_hits": rt.store.df_filter_cache_hits,
+            "df_filter_cache_misses": rt.store.df_filter_cache_misses,
         },
         "metrics": metrics.snapshot(),
     }

@@ -27,11 +27,13 @@ scan serves both routes, so the approx route's dense selection and
 dense branch are ``dense_topk`` and ``dense_full``: their keys
 (``dense_approx_sel``, ``dense_full_approx``) say ``same_as``.
 
-``host`` splits one whole ``hybrid_topk_batch`` (one caller, warm) on
-the host's clock: making the inputs (tokens to ids, the split query
-arrays, the pack and its upload), queueing the step's ops, and the
-fetch of the rows, which waits for the card; and, from a torch.profiler
-trace of one such batch, its host-to-device copies and bytes, the torch
+``host`` splits one whole ``hybrid_topk_batch`` (one caller, warm) by
+the store's own spans (``utils.metrics`` tracing): making the inputs
+(``store.inputs``: tokens to ids, the split query arrays, the pack and
+its upload), queueing the step's ops (``step``), and the fetch of the
+rows, which waits for the card; the share of the tail gather's window
+that holds a posting (``store.inputs.split``'s counts); and, from a
+torch.profiler trace of one such batch, its host-to-device copies and bytes, the torch
 ops and kernels it runs, the host time inside torch ops beside the
 traced span from its first op to its last (both with the profiler's
 overhead in them) and the card's busy time.
@@ -205,13 +207,16 @@ def _span_ms(events) -> float:
 
 def host_batch(store, queries, iters: int = ITERS, k: int = 8,
                pool: int = 24) -> dict:
-    """One caller's ``hybrid_topk_batch`` split on the host's clock, the
-    medians over ``iters`` warm batches (``inputs_ms``, ``queue_ms``,
-    ``fetch_ms``, ``wall_ms``), and the counts of a trace of one batch."""
+    """One caller's ``hybrid_topk_batch`` split by its spans, the medians
+    over ``iters`` warm batches (``inputs_ms``: ``store.inputs``,
+    ``queue_ms``: ``step``, ``fetch_ms``: the call's end to the rows on
+    the host, ``wall_ms``), the share of the tail gather's
+    ``[segments, r_cap]`` window that holds a posting
+    (``tail_slot_use_pct``: ``store.inputs.split``'s ``tail_postings``
+    over its ``tail_slots``; None with no tail segment), and the counts
+    of a trace of one batch."""
     from classmate_rag_tpu_torch.device import synchronize
-    from classmate_rag_tpu_torch.ops.hybrid_step import (
-        hybrid_query_step_split_packed,
-    )
+    from classmate_rag_tpu_torch.utils.metrics import metrics
     from classmate_rag_tpu_torch.utils.profiling import (
         chrome_events, h2d_copies,
     )
@@ -225,19 +230,25 @@ def host_batch(store, queries, iters: int = ITERS, k: int = 8,
 
     batch()
     parts = {"inputs_ms": [], "queue_ms": [], "fetch_ms": [], "wall_ms": []}
+    tail = {"tail_postings": 0, "tail_slots": 0}
     for _ in range(iters):
         synchronize(store.device)
-        t0 = time.perf_counter()
-        args, kw = store.hybrid_step_inputs(q, terms, None, **knobs)
-        t1 = time.perf_counter()
-        out = hybrid_query_step_split_packed(*args, **kw)
-        t2 = time.perf_counter()
-        out.rows.cpu()
-        t3 = time.perf_counter()
-        for key, a, b in (("inputs_ms", t0, t1), ("queue_ms", t1, t2),
-                          ("fetch_ms", t2, t3), ("wall_ms", t0, t3)):
-            parts[key].append((b - a) * 1e3)
+        with metrics.tracing() as spans:
+            batch()
+            t_fetched = time.perf_counter_ns()
+        by_name = {sp.name: sp for sp in spans}
+        call = by_name["store.batch"]
+        for key, sp in (("inputs_ms", by_name["store.inputs"]),
+                        ("queue_ms", by_name["step"])):
+            parts[key].append((sp.t1_ns - sp.t0_ns) / 1e6)
+        parts["fetch_ms"].append((t_fetched - call.t1_ns) / 1e6)
+        parts["wall_ms"].append((t_fetched - call.t0_ns) / 1e6)
+        for key in tail:
+            tail[key] += by_name["store.inputs.split"].counts[key]
     out = {key: float(np.median(v)) for key, v in parts.items()}
+    out["tail_slot_use_pct"] = (
+        100.0 * tail["tail_postings"] / tail["tail_slots"]
+        if tail["tail_slots"] else None)
     events = chrome_events(batch)
     h2d = h2d_copies(events)
     out.update(

@@ -5,16 +5,68 @@ The reference has no observability beyond wall-clock bench scripts
 surfaced through ``index_stats`` and the ``stats`` CLI verb. Deliberately
 dependency-free and cheap: a dict of counters and bounded latency rings.
 
-Host copy of the JAX package's ``utils/metrics.py`` (no JAX).
+Host copy of the JAX package's ``utils/metrics.py`` (no JAX), plus spans:
+``span(name, **counts)`` marks a stage of the store call or the fused
+step, and ``tracing()`` turns recording on for a block and yields the
+list of closed spans (``Span``), read after the block. With tracing off
+a span is one attribute test and a shared no-op context: no record, no
+allocation of its own, no lock. Span times are ``time.perf_counter_ns``.
 """
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from collections import defaultdict, deque
-from contextlib import contextmanager
-from typing import Dict, Iterator
+from contextlib import contextmanager, nullcontext
+from typing import Any, Dict, Iterator, List, NamedTuple, Optional
+
+
+class Span(NamedTuple):
+    """One closed span of a ``Metrics.tracing()`` block."""
+    span_id: int
+    parent_id: Optional[int]    # the thread's innermost open span
+    batch_id: int               # the span_id of the thread's outermost
+    name: str
+    t0_ns: int                  # time.perf_counter_ns at open
+    t1_ns: int                  # ... at close
+    counts: Dict[str, Any]      # counts the work carried (host values)
+
+
+class _OpenSpan:
+    """A span while it is open; ``count(**counts)`` adds to its counts."""
+
+    __slots__ = ("_owner", "_out", "span_id", "parent_id", "batch_id",
+                 "name", "t0_ns", "counts")
+
+    def __init__(self, owner: "Metrics", out: List[Span], name: str,
+                 counts: Dict[str, Any]) -> None:
+        self._owner, self._out, self.name = owner, out, name
+        self.counts = counts
+        self.span_id = next(owner._span_ids)
+
+    def count(self, **counts: Any) -> None:
+        self.counts.update(counts)
+
+    def __enter__(self) -> "_OpenSpan":
+        stack = self._owner._open_stack()
+        self.parent_id = stack[-1].span_id if stack else None
+        self.batch_id = stack[0].span_id if stack else self.span_id
+        stack.append(self)
+        self.t0_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        t1 = time.perf_counter_ns()
+        self._owner._open_stack().pop()
+        self._out.append(Span(self.span_id, self.parent_id, self.batch_id,
+                              self.name, self.t0_ns, t1, self.counts))
+        return False
+
+
+# What ``span`` returns with tracing off: enters as None.
+_NO_SPAN = nullcontext()
 
 
 class Metrics:
@@ -27,6 +79,11 @@ class Metrics:
             lambda: deque(maxlen=window)
         )
         self._started = time.time()
+        # Tracing: the list closed spans go to while ``tracing()`` is on
+        # (None while off), span ids, each thread's open spans.
+        self._spans: Optional[List[Span]] = None
+        self._span_ids = itertools.count(1)
+        self._open = threading.local()
 
     def incr(self, name: str, by: int = 1) -> None:
         with self._lock:
@@ -34,14 +91,47 @@ class Metrics:
 
     @contextmanager
     def timer(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
+        """Time the block into ``name``'s ring (and, while tracing is on,
+        record it as a span too)."""
+        with self.span(name):
+            t0 = time.perf_counter_ns()
+            try:
+                yield
+            finally:
+                dt_ms = (time.perf_counter_ns() - t0) / 1e6
+                with self._lock:
+                    self._timings[name].append(dt_ms)
+                    self._counters[f"{name}_count"] += 1
+
+    def span(self, name: str, **counts: Any):
+        """A context that records one ``Span`` while tracing is on and
+        enters as the open span (``.count(**more)`` adds counts); with
+        tracing off, a shared no-op context that enters as None. A span
+        opened with none open on its thread is a batch's root: the spans
+        inside it carry its span_id as their batch_id."""
+        out = self._spans
+        if out is None:
+            return _NO_SPAN
+        return _OpenSpan(self, out, name, counts)
+
+    def _open_stack(self) -> List[_OpenSpan]:
+        stack = getattr(self._open, "stack", None)
+        if stack is None:
+            stack = self._open.stack = []
+        return stack
+
+    @contextmanager
+    def tracing(self) -> Iterator[List[Span]]:
+        """Record spans for the block; yields the list they close into.
+        Not reentrant: one recording at a time."""
+        if self._spans is not None:
+            raise RuntimeError("tracing is already on")
+        spans: List[Span] = []
+        self._spans = spans
         try:
-            yield
+            yield spans
         finally:
-            dt_ms = (time.perf_counter() - t0) * 1000.0
-            with self._lock:
-                self._timings[name].append(dt_ms)
-                self._counters[f"{name}_count"] += 1
+            self._spans = None
 
     def snapshot(self) -> Dict[str, object]:
         with self._lock:

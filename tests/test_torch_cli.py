@@ -205,6 +205,11 @@ def test_fourteen_verbs_match_the_jax_cli(tmp_path, monkeypatch, capsys):
                     monkeypatch)
     got = _run_all(tcli.main, tload, docs, tmp_path / "t", capsys,
                    monkeypatch, device="cpu")
+    for verb, _rc, stdout, _errs in got:
+        if verb == "stats":       # counters only the port's stats carry
+            m = stdout["maintenance"]
+            assert m.pop("df_filter_cache_hits") >= 0
+            assert m.pop("df_filter_cache_misses") >= 0
     assert {v for v, *_ in got} == set(_subparsers(tcli.build_parser()))
     for g, w in zip(got, want):
         _same(g, w, g[0])

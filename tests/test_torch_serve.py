@@ -94,6 +94,11 @@ def _same_json(a, b, path="$"):
         assert a == b, path
 
 
+# Maintenance counters only the port's stats carry: the filtered-df
+# cache's hits and misses.
+PORT_ONLY_MAINTENANCE = ("df_filter_cache_hits", "df_filter_cache_misses")
+
+
 def both(servers, route, payload=None, drop=()):
     jurl, turl, _ = servers
     (jc, jb), (tc, tb) = _call(jurl + route, payload), _call(
@@ -102,6 +107,9 @@ def both(servers, route, payload=None, drop=()):
     for key in drop:
         jb.pop(key, None)
         tb.pop(key, None)
+    if "maintenance" in tb:
+        for key in PORT_ONLY_MAINTENANCE:
+            assert tb["maintenance"].pop(key) >= 0
     _same_json(jb, tb)
     return tc, tb
 

@@ -258,6 +258,7 @@ def test_profile_stages_equal_the_step(store, corpus):
     assert host["wall_ms"] >= host["inputs_ms"] > 0
     assert host["h2d_copies"] == 0 and host["torch_ops"] > 0
     assert 0 < host["torch_op_ms"] <= host["traced_span_ms"]
+    assert 0 < host["tail_slot_use_pct"] <= 100
 
 
 def test_bench_serve_with_a_mutation_storm(tmp_path, monkeypatch):
