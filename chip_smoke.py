@@ -19,6 +19,7 @@ six-stage multi-device dryrun).
     python3 chip_smoke.py            # on a machine with one NVIDIA GPU
     python3 chip_smoke.py --product-child DIR   # phase 8's child alone
     python3 chip_smoke.py --decode-child        # phase 9's child alone
+    python3 chip_smoke.py --row-select-child    # phase 2's row_select part
     python3 chip_smoke.py --multihost-child RANK DIR ADDR   # a phase 14 rank
     python3 chip_smoke.py --tools-child cold|serve DIR      # a phase 17 child
 
@@ -34,7 +35,12 @@ Phases, one JSON line each; any failure exits non-zero with no result:
               time, the plain version's, one PyTorch library call's,
               and the card's bound; then phase 10's and phase 13's
               kernel checks (their 'kernels' line, part 'train'), here
-              while the process is young;
+              while the process is young; its row_select part runs
+              after phase 16, in a child (--row-select-child; line part
+              'row_select'): BM25's selection bit-equal to the stable
+              sort it replaces on BM25-shaped [256, 1,048,576] and
+              [256, 262,144] scores at k 8, 64 and 128 and at its edges,
+              with the share of entries its filter let through;
 3. slice      4 batches of 256 queries through IndexStore.hybrid_topk_batch
               (launch counts reset just before, read just after), all 4
               held against the same packed step on CPU copies of their
@@ -329,6 +335,9 @@ CHUNKS_PER_DOC = 10
 PRODUCT_ASKS = 32
 PRODUCT_CPU_ASKS = 8   # asks held against a store loaded anew on the CPU
 BACKWARD_KERNELS = ("flash_attn_bwd_delta", "flash_attn_bwd")  # training
+# Launched only where a batch's rows do not fill the card (fewer than
+# its SMs): row_select then cuts each row into slices and merges them.
+SPLIT_ONLY_KERNELS = ("row_select_merge",)
 
 
 
@@ -697,10 +706,135 @@ def kernel_phase(ttopk, store, q_dev, peaks):
     return serving, big_row, merge
 
 
+def bm25_shaped(g, b, n):
+    """[b, n] f32 scores shaped like BM25's: ~0.1 % of the entries
+    positive, from 36 levels (ties), the rest exact zeros."""
+    live = torch.rand(b, n, device="cuda", generator=g) < 1e-3
+    level = torch.randint(1, 37, (b, n), device="cuda", generator=g,
+                          dtype=torch.int32).float() * 0.4375
+    return torch.where(live, level, 0.0)
+
+
+def row_select_same(ttopk, scores, bias, k, what) -> float:
+    """row_select vs the stable sort it replaces, on the card: rows equal,
+    values equal bit for bit. Returns the share of entries the kernel's
+    filter let through."""
+    got_v, got_r, admitted = ttopk.row_select(scores, bias, k)
+    want_v, want_r = ttopk.stable_topk(scores + bias[None, :], k)
+    torch.cuda.synchronize()
+    check(got_r.shape == want_r.shape and torch.equal(got_r, want_r)
+          and torch.equal(got_v.view(torch.int32), want_v.view(torch.int32)),
+          f"row_select {what}: differs from the stable sort")
+    return admitted.item() / scores.numel()
+
+
+def row_select_rows(ttopk, peaks):
+    """row_select at the two cells' shapes ([256, 1,048,576] k 64, the
+    approx route's pool; [256, 262,144] k 8, the exact route): both
+    kernel rows first, their device time from held-stream CUDA events
+    (the profiler dropped 2 of 20 kernels in 7 of 8 traces of the 262,144
+    row, even in a young process), then k 8, 64, 128 on each, bit-equal to
+    ``stable_topk`` of the biased scores; then its edges: k 257 refused
+    before a launch, fewer live rows than k, every ninth bias NEG_INF,
+    all masked, N < k, N not a multiple of the 4-column load, B 1 and 4
+    (the slice-and-merge grid). Returns the two kernel rows and the
+    edges' admitted shares."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    shapes = ((1 << 20, 64), (1 << 18, 8))
+    scores = {n: bm25_shaped(g, BATCH, n) for n, _k in shapes}
+    zeros = {n: torch.zeros(n, device="cuda") for n, _k in shapes}
+    rows, edges = [], {}
+    for n, k_main in shapes:
+        s, bias = scores[n], zeros[n]
+        row = kernel_row(
+            "row_select", "row_select.cu",
+            "none (XLA's lax.top_k / approx_max_k, "
+            "classmate_rag_tpu/ops/hybrid_step.py)",
+            {"B": BATCH, "N": n, "k": k_main}, 0.0,
+            lambda: ttopk.row_select(s, bias, k_main), ttopk.LAUNCHES,
+            time_ms(lambda: ttopk.stable_topk(s + bias[None, :], k_main),
+                    reps=5),
+            lambda: ttopk.stable_topk(s + bias[None, :], k_main),
+            BATCH * n * 4 + n * 4 + BATCH * k_main * 12, 0.0,
+            peaks[0], peaks[1], held=True)
+        rows.append(row)
+    for (n, k_main), row in zip(shapes, rows):
+        s, bias = scores[n], zeros[n]
+        row["admitted_share"] = {
+            k: row_select_same(ttopk, s, bias, k, f"N {n} k {k}")
+            for k in (8, 64, 128)}
+        masked = bias.clone()
+        masked[::9] = ttopk.NEG_INF
+        edges[f"ninth_masked_{n}"] = row_select_same(
+            ttopk, s, masked, 64, f"N {n}, every ninth masked")
+        for b in (1, 4):
+            edges[f"b{b}_{n}"] = row_select_same(
+                ttopk, s[:b].contiguous(), masked, k_main, f"B {b}, N {n}")
+    n = 1 << 18
+    s = scores[n]
+    before = dict(ttopk.LAUNCHES)
+    try:
+        ttopk.row_select(s, zeros[n], 257)
+        check(False, "row_select: k 257 was taken")
+    except ValueError:
+        pass
+    check(ttopk.LAUNCHES == before, "row_select: k 257 launched")
+    few = torch.full((n,), ttopk.NEG_INF, device="cuda")
+    few[1000:1040] = 0.0                            # 40 live rows, k 64
+    edges["fewer_live_than_k"] = row_select_same(
+        ttopk, s, few, 64, "40 live rows, k 64")
+    edges["all_masked"] = row_select_same(
+        ttopk, s, torch.full((n,), ttopk.NEG_INF, device="cuda"), 64,
+        "all masked")
+    edges["n_below_k"] = row_select_same(
+        ttopk, s[:, :100].contiguous(), zeros[n][:100].contiguous(), 128,
+        "N 100, k 128")
+    for n_odd in (n + 77, 5077):
+        odd = bm25_shaped(g, BATCH, n_odd)
+        odd_bias = torch.zeros(n_odd, device="cuda")
+        odd_bias[::9] = ttopk.NEG_INF
+        edges[f"n_{n_odd}"] = row_select_same(
+            ttopk, odd, odd_bias, 64, f"N {n_odd}")
+        edges[f"b4_n_{n_odd}"] = row_select_same(
+            ttopk, odd[:4].contiguous(), odd_bias, 64, f"B 4, N {n_odd}")
+    return rows, edges
+
+
+def row_select_child() -> int:
+    """Phase 2's row_select part in its own young process: one 'kernels'
+    line, part 'row_select'."""
+    from classmate_rag_tpu_torch.ops import topk as ttopk
+
+    rows, edges = row_select_rows(
+        ttopk, peaks_for(torch.cuda.get_device_name(0))[1])
+    emit({"phase": "kernels", "part": "row_select", "kernels": rows,
+          "edges_admitted_share": edges})
+    return 0
+
+
+def row_select_phase() -> list:
+    """Run the row_select child and relay its line; returns its rows."""
+    cmd = [sys.executable, str(Path(__file__).resolve()),
+           "--row-select-child"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    for line in lines:
+        emit(line)
+    check(proc.returncode == 0,
+          f"row_select child failed (rc={proc.returncode}):\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    rows = [r for ln in lines if ln.get("part") == "row_select"
+            for r in ln["kernels"]]
+    check(len(rows) == 2, "row_select child: its kernel rows are missing")
+    return rows
+
+
 # The port's kernels by the names the profiler gives them.
 PORT_KERNELS = ("topk_scan_kernel", "topk_merge_kernel", "bias_gelu_kernel",
                 "residual_ln_kernel", "flash_attn_kernel",
-                "flash_attn_bwd_kernel", "flash_attn_bwd_delta_kernel")
+                "flash_attn_bwd_kernel", "flash_attn_bwd_delta_kernel",
+                "row_select_kernel", "row_select_merge_kernel")
 TRACES = 4          # profiler sessions tried for one whole trace
 TRACE_AGREE = 0.05  # two whole traces' device times agree within this
 
@@ -802,15 +936,20 @@ def queued_ms(fn, reps: int = 20):
 
 
 def kernel_row(name, source, replaces, shape, err, fn, launches, plain_ms,
-               library, bytes_moved, ops, bw, op_peak):
+               library, bytes_moved, ops, bw, op_peak, held=False):
     """One kernel's numbers: ``fn`` calls its wrapper, which counts its
     launches in ``launches``; ``library`` the one PyTorch call that
     computes the same function (None where there is none); the bound is the larger of bytes over
     the memory rate and operations over the peak rate of their type. No
-    device time may fall under the bound."""
+    device time may fall under the bound. With ``held`` the device time
+    is ``queued_ms``'s (CUDA events around calls queued behind a spin),
+    not a whole profiler trace's: for a kernel whose traces the profiler
+    drops kernels from."""
     t_bytes = bytes_moved / bw * 1e3
     t_ops = ops / op_peak * 1e3
-    dev, traces = device_ms(fn, launches)
+    dev, traces = (queued_ms(fn), 0) if held else device_ms(fn, launches)
+    check(dev is not None, f"{name} {shape}: no held-stream time (the host "
+          "never got ahead of the card)")
     row = {
         "name": name,
         "route": "cuda",
@@ -1199,7 +1338,8 @@ def encoder_phase(rng, docs, counts, peaks, profile_path):
     n_layers = slice_cfg.layers      # 12: 12 / 24 / 12 a forward
     want = {"bias_gelu": n_layers * n_fwd, "residual_ln": 2 * n_layers * n_fwd,
             "flash_attn": n_layers * n_flash, "topk_scan": 0,
-            "topk_merge": 0, **{k: 0 for k in BACKWARD_KERNELS}}
+            "topk_merge": 0, "row_select": 0, "row_select_merge": 0,
+            **{k: 0 for k in BACKWARD_KERNELS}}
     check(launches == want, f"encoder launches {launches} != {want}")
     check(n_flash > 0 and n_flash < n_fwd, "expected flash and non-flash "
           f"buckets, got {sorted(set(t for _b, t in shapes))}")
@@ -1337,7 +1477,7 @@ def ingest_ask_phase(enc, docs, rng, counts, knobs):
         for name, n in launches.items():
             if name in BACKWARD_KERNELS:   # training only
                 check(n == 0, f"ingest+ask: {name} was launched")
-            else:
+            elif name not in SPLIT_ONLY_KERNELS:
                 check(n > 0, f"ingest+ask: {name} was not launched")
         check(seen == ["cuda"], f"the query tensor reached the store as "
               f"{seen}, not on the card")
@@ -4180,7 +4320,7 @@ def routed_phase(tree, ckpt_dir: Path, docs, counts) -> dict:
         for name, n in launches.items():
             if name in BACKWARD_KERNELS:
                 check(n == 0, f"routed: {name} was launched")
-            else:
+            elif name not in SPLIT_ONLY_KERNELS:
                 check(n > 0, f"routed: {name} was not launched")
         check(rt._runner is None, "routed: the runtime built its own runner")
 
@@ -4708,8 +4848,9 @@ WALL_OVER_CEILING = 1.05   # wall QPS over the device ceiling, at most
 def bench_phase(counts) -> dict:
     """The port's benchmark at 1,000,000 chunks on the card, held to
     bench.py's bars: the approx route chosen by size, recall@8 against
-    the oracle unfiltered and in every filter case, 1 + 1 scan launches a
-    timed batch, and a wall QPS the card's own time can account for."""
+    the oracle unfiltered and in every filter case, 1 + 1 scan launches
+    and 1 row_select a timed batch, and a wall QPS the card's own time can
+    account for."""
     import os
 
     from classmate_rag_tpu_torch import bench
@@ -4738,7 +4879,8 @@ def bench_phase(counts) -> dict:
               f"bench: filter case {name} recall@8 {case['recall@8']}")
     per_batch = {k: v / detail["timed_batches"]
                  for k, v in detail["timed_launches"].items()}
-    check(per_batch == {"topk_scan": 1.0, "topk_merge": 1.0},
+    check(per_batch["topk_scan"] == per_batch["topk_merge"]
+          == per_batch["row_select"] == 1.0,
           f"bench: launches a timed batch {per_batch}")
     check(out["value"] <= WALL_OVER_CEILING * out["device_ceiling_qps"],
           f"bench: wall {out['value']} QPS over the device ceiling "
@@ -4783,6 +4925,8 @@ def main() -> int:
                          "persisted index in DIR (bm25/, dense/)")
     ap.add_argument("--decode-child", action="store_true",
                     help="run only the decode phase's child")
+    ap.add_argument("--row-select-child", action="store_true",
+                    help="run only phase 2's row_select part (a child)")
     ap.add_argument("--tools-child", nargs=2, metavar=("PART", "DIR"),
                     help="run one of phase 17's children (PART 'cold' or "
                          "'serve') against the product index in DIR")
@@ -4800,6 +4944,8 @@ def main() -> int:
         return product_child(Path(args.product_child), args.profile)
     if args.decode_child:
         return decode_child()
+    if args.row_select_child:
+        return row_select_child()
     if args.tools_child:
         part, root = args.tools_child
         return tools_child(part, Path(root))
@@ -4895,7 +5041,7 @@ def main() -> int:
         events.append(start.elapsed_time(end))
         outs.append((out, rows))
     launches = counts.read()
-    for name in ("topk_scan", "topk_merge"):
+    for name in ("topk_scan", "topk_merge", "row_select"):
         check(launches[name] == len(batches),
               f"{name} launches {launches[name]} != {len(batches)}")
 
@@ -5102,10 +5248,14 @@ def main() -> int:
 
     # ---- 16. bench ---------------------------------------------------------
     bench_phase(counts)
+    # Phase 2's row_select part, last, so that no phase runs later in the
+    # process's life for it (an older process's traces drop more).
+    select_rows = row_select_phase()
 
     line = []
     for row, n in ((kern, launches["topk_scan"]),
                    (merge, launches["topk_merge"]),
+                   *((row, launches["row_select"]) for row in select_rows),
                    (gelu, enc_launches["bias_gelu"]),
                    (ln, enc_launches["residual_ln"]),
                    (flash, enc_launches["flash_attn"]),

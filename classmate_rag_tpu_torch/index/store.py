@@ -77,8 +77,13 @@ from classmate_rag_tpu_torch.ops.hybrid_step import (
     HybridBatchResult,
     hybrid_query_step_split_packed,
     pack_query_arrays,
+    select_width,
 )
-from classmate_rag_tpu_torch.ops.topk import masked_topk, stable_topk
+from classmate_rag_tpu_torch.ops.topk import (
+    ROW_SELECT_MAX_K,
+    masked_topk,
+    stable_topk,
+)
 from classmate_rag_tpu_torch.utils.metrics import metrics
 from classmate_rag_tpu_torch.utils.numerics import NEG_INF
 from classmate_rag_tpu_torch.utils.numerics import round_up as _round_up
@@ -1146,7 +1151,18 @@ class IndexStore:
         the step), ``.mask``, ``.df``, ``.terms``, ``.split`` (counts
         ``tail_postings``, the live tail segments' posting entries, and
         ``tail_slots``, live segments × ``r_cap``, from the host arrays)
-        and ``.pack`` (the buffer and the copies)."""
+        and ``.pack`` (the buffer and the copies).
+
+        On CUDA a BM25 selection wider than the card's row top-k takes
+        (``select_width`` above ROW_SELECT_MAX_K: ``k_bm25`` above 256 on
+        the exact route, above 64 on the approx one) raises ValueError
+        here, before anything is launched."""
+        width = select_width(k_bm25, self.capacity, self.select_mode)
+        if self.device.type == "cuda" and width > ROW_SELECT_MAX_K:
+            raise ValueError(
+                f"k_bm25={k_bm25} on the {self.select_mode} route selects "
+                f"{width} BM25 rows, above the {ROW_SELECT_MAX_K} the "
+                "card's row top-k takes")
         with metrics.span("store.inputs"):
             with metrics.span("store.inputs.sync"):
                 dev = self._sync_device()

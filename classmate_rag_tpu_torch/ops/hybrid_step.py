@@ -34,7 +34,7 @@ from classmate_rag_tpu_torch.ops.mmr import mmr_order
 from classmate_rag_tpu_torch.ops.topk import (
     lexsort_desc,
     masked_topk,
-    stable_topk,
+    row_select,
 )
 from classmate_rag_tpu_torch.utils.metrics import metrics
 from classmate_rag_tpu_torch.utils.numerics import NEG_INF
@@ -143,20 +143,32 @@ def bm25_rescore_pool(rows, term_ids, tfs, doc_len, avgdl, idf,
     return (w[:, None, :] * sat).sum(-1)
 
 
-def bm25_select(biased, k_bm25, *, select="exact", rescore_ctx=None):
-    """(vals, rows) [B, k] of the best rows of ``biased`` [B, N] (BM25
-    scores plus the mask bias), (value desc, row asc); k = min(k_bm25, N).
+def select_width(k_bm25, n, select="exact"):
+    """Columns ``bm25_select``'s first selection keeps of N: min(k, N) on
+    the exact route, the approx route's wider pool min(max(64, 4k), N)."""
+    k_bm_eff = min(k_bm25, n)
+    if select != "approx":
+        return k_bm_eff
+    return min(max(64, 4 * k_bm_eff), n)
+
+
+def bm25_select(scores, bias, k_bm25, *, select="exact", rescore_ctx=None):
+    """(vals, rows) [B, k] of the best rows of ``scores`` [B, N] (BM25
+    scores) plus ``bias`` [N] (the mask bias), (value desc, row asc);
+    k = min(k_bm25, N). The first selection is ``row_select`` (on the card
+    one read of the scores; its width, ``select_width``, at most
+    ROW_SELECT_MAX_K there).
 
     ``select="approx"`` takes a wider pool (max(64, 4k) rows) and, with
     ``rescore_ctx``, re-scores it exactly before the final order: BM25
     scores tie often, and boundary ties must resolve exactly as the exact
     route does."""
-    n = biased.shape[1]
+    n = scores.shape[1]
     k_bm_eff = min(k_bm25, n)
+    p_vals, p_rows, _ = row_select(scores, bias,
+                                   select_width(k_bm25, n, select))
     if select != "approx":
-        return stable_topk(biased, k_bm_eff)
-    k_sel = min(max(64, 4 * k_bm_eff), n)
-    p_vals, p_rows = stable_topk(biased, k_sel)
+        return p_vals, p_rows
     if rescore_ctx is not None:
         exact = bm25_rescore_pool(p_rows, *rescore_ctx)
         p_vals = torch.where(p_vals > NEG_INF / 2, exact, NEG_INF)
@@ -176,7 +188,7 @@ def _bm25_postprocess(bm_scores, mask_bias, has_terms, *, k_bm25,
                       select="exact", rescore_ctx=None):
     """Top-k over BM25 scores with padding/empty-query handling."""
     return bm25_finish(
-        *bm25_select(bm_scores + mask_bias[None, :], k_bm25, select=select,
+        *bm25_select(bm_scores, mask_bias, k_bm25, select=select,
                      rescore_ctx=rescore_ctx),
         has_terms,
     )

@@ -17,8 +17,14 @@ each query the k best rows, ties to the LOWEST row. Four pieces:
 - ``masked_topk``: the wrapper. CPU tensors take the plain version; CUDA
   tensors launch the kernel or raise.
 
+And the row top-k of a score matrix plus a bias (BM25's selection in the
+fused step), ``row_select``: on the CPU ``stable_topk`` of the biased
+scores, on CUDA the kernel ``csrc/row_select.cu`` (one read of the
+scores); ``row_slices`` is its grid over the rows.
+
 ``torch.topk`` makes no promise about which of several equal values it
-returns, so every selection here is a stable sort.
+returns, so every selection here is a stable sort or a kernel that
+returns what the stable sort would.
 """
 
 from __future__ import annotations
@@ -33,11 +39,16 @@ from classmate_rag_tpu_torch.ops import _build
 from classmate_rag_tpu_torch.utils.numerics import NEG_INF
 
 # Launches of each kernel, counted where the wrapper launches it.
-LAUNCHES = {"topk_scan": 0, "topk_merge": 0}
+LAUNCHES = {"topk_scan": 0, "topk_merge": 0, "row_select": 0,
+            "row_select_merge": 0}
 
 # The largest k ``masked_topk`` takes, on either device (the kernel's
 # own limit, ``topk_scan_max_k()``, is checked against it at launch).
 MAX_K = 128
+
+# The largest k ``row_select`` takes on CUDA (the kernel's own limit,
+# ``row_select_max_k()``, refuses a launch above it); the CPU takes any.
+ROW_SELECT_MAX_K = 256
 
 
 def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -270,3 +281,131 @@ def masked_topk(
     if emb.device.type != "cuda":
         raise ValueError(f"unsupported device {emb.device}")
     return topk_scan(emb, queries, mask_bias, k)
+
+
+# ---------------------------------------------------------------------------
+# Row top-k of a score matrix plus a bias (csrc/row_select.cu)
+# ---------------------------------------------------------------------------
+
+def row_slices(b: int, n: int, *, sms: int, step_rows: int,
+               min_block_rows: int) -> Tuple[int, int]:
+    """(n_slices, slice_rows) of ``row_select``'s grid over B rows of N.
+
+    One slice a row when the rows fill the card (B >= ``sms``): one
+    launch. Otherwise each row is cut into slices so that the grid holds
+    about two blocks an SM, none shorter than ``min_block_rows`` unless
+    the row is, and a second launch merges them. Slices are whole steps
+    (``step_rows``): every slice but the last holds ``slice_rows`` rows
+    and the last the rest (never none)."""
+    if b <= 0 or n <= 0:
+        raise ValueError(f"empty selection: B={b}, N={n}")
+    want = 1 if b >= sms else min(-(-2 * sms // b),
+                                  max(1, n // min_block_rows))
+    steps = -(-n // step_rows)
+    slice_rows = -(-steps // min(want, steps)) * step_rows
+    return -(-n // slice_rows), slice_rows
+
+
+def _row_lib() -> ctypes.CDLL:
+    lib = _build.load("row_select")
+    if lib.row_select_launch.argtypes is None:
+        lib.row_select_launch.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        lib.row_select_merge_launch.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    return lib
+
+
+_row_plans: Dict[Tuple[int, int, int], Tuple[int, int]] = {}
+
+
+def _row_plan(b: int, n: int, device: torch.device) -> Tuple[int, int]:
+    """``row_slices`` for a launch on ``device``: the SMs from the card,
+    the step and the block's warps from the library."""
+    key = (device.index or 0, b, n)
+    plan = _row_plans.get(key)
+    if plan is None:
+        lib = _row_lib()
+        step = lib.row_select_step_rows()
+        plan = _row_plans[key] = row_slices(
+            b, n, sms=torch.cuda.get_device_properties(
+                device).multi_processor_count,
+            step_rows=step, min_block_rows=2 * lib.row_select_warps() * step)
+    return plan
+
+
+def _check_rows(scores, bias, k):
+    if scores.dim() != 2 or bias.dim() != 1:
+        raise ValueError("expected scores [B, N], bias [N]")
+    if scores.dtype != torch.float32 or bias.dtype != torch.float32:
+        raise TypeError(f"scores and bias must be float32, got "
+                        f"{scores.dtype} and {bias.dtype}")
+    if bias.shape[0] != scores.shape[1] or scores.shape[1] == 0:
+        raise ValueError(f"shape mismatch: scores {tuple(scores.shape)}, "
+                         f"bias {tuple(bias.shape)}")
+    if k < 1:
+        raise ValueError(f"k must be at least 1, got {k}")
+    if scores.device != bias.device:
+        raise ValueError("scores and bias must share a device")
+    for name, t in (("scores", scores), ("bias", bias)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def row_select(scores: torch.Tensor, bias: torch.Tensor, k: int):
+    """The first k' = min(k, N) of each row of ``scores + bias[None, :]``
+    ([B, N] f32 plus [N] f32) by (value desc, row asc), as
+    ``stable_topk`` orders them: (vals [B, k'] f32, rows [B, k'] int64,
+    admitted).
+
+    On the CPU: the plain version, ``stable_topk`` of the biased scores;
+    ``admitted`` is None. On CUDA: the kernel, which reads the scores once
+    and writes no [B, N] result, or an error (k above ROW_SELECT_MAX_K
+    raises before any launch) — there is no fallback. ``admitted`` is
+    then a one-element int64 tensor on the card that the kernel fills with
+    the number of entries its filter let through; nothing here reads it,
+    so the call never waits for the card."""
+    _check_rows(scores, bias, k)
+    if scores.device.type == "cpu":
+        return (*stable_topk(scores + bias[None, :], k), None)
+    if scores.device.type != "cuda":
+        raise ValueError(f"unsupported device {scores.device}")
+    if k > ROW_SELECT_MAX_K:
+        raise ValueError(
+            f"k must be in [1, {ROW_SELECT_MAX_K}] on CUDA, got {k}")
+    for name, t in (("scores", scores), ("bias", bias)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    b, n = scores.shape
+    if b == 0:
+        raise ValueError("no rows")
+    lib = _row_lib()
+    if n > lib.row_select_max_n():
+        raise ValueError(f"N={n} above the kernel's {lib.row_select_max_n()}")
+    k = min(k, n)
+    n_slices, slice_rows = _row_plan(b, n, scores.device)
+    dev = scores.device
+    vals = torch.empty((b, k), dtype=torch.float32, device=dev)
+    rows = torch.empty((b, k), dtype=torch.int64, device=dev)
+    # The launch's counter, then (more than one slice a row) the lists.
+    scratch = torch.empty(1 + (b * n_slices * k if n_slices > 1 else 0),
+                          dtype=torch.int64, device=dev)
+    with _on(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.row_select_launch(
+            scores.data_ptr(), bias.data_ptr(), vals.data_ptr(),
+            rows.data_ptr(), scratch.data_ptr(), b, n, k, n_slices,
+            slice_rows, stream)
+        if err != 0:
+            raise RuntimeError(f"row_select launch failed: cudaError {err}")
+        LAUNCHES["row_select"] += 1
+        if n_slices > 1:
+            err = lib.row_select_merge_launch(
+                scores.data_ptr(), bias.data_ptr(), vals.data_ptr(),
+                rows.data_ptr(), scratch.data_ptr(), b, n, k, n_slices,
+                stream)
+            if err != 0:
+                raise RuntimeError(
+                    f"row_select_merge launch failed: cudaError {err}")
+            LAUNCHES["row_select_merge"] += 1
+    return vals, rows, scratch[:1]

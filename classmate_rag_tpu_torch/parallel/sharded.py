@@ -287,7 +287,7 @@ def _bm25_merge_sharded(sh, scores, mask_bias, has_terms, *, k_bm25,
         with _device_ctx(dev):
             n_local = scores[s].shape[1]
             bv, bi = bm25_select(
-                scores[s] + mask_bias[s][None, :], k_bm25, select=select,
+                scores[s], mask_bias[s], k_bm25, select=select,
                 rescore_ctx=None if rescore_ctx is None else rescore_ctx[s],
             )
             vals.append(bv)

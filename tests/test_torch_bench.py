@@ -125,8 +125,10 @@ def test_run_scale_recall_equals_root(scales):
     assert set(detail["seconds"]) == {
         "corpus", "upsert", "first_batch", "timed_passes", "device_probe",
         "oracle", "filtered"}
-    # The CPU runs the scan's plain version: no kernel launch counted.
-    assert detail["timed_launches"] == {"topk_scan": 0, "topk_merge": 0}
+    # The CPU runs the plain versions: no kernel launch counted.
+    assert detail["timed_launches"] == {"topk_scan": 0, "topk_merge": 0,
+                                        "row_select": 0,
+                                        "row_select_merge": 0}
     assert detail["timed_batches"] >= 2
 
 

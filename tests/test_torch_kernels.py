@@ -9,6 +9,8 @@ Tolerances:
   f32, in different orders, so scores agree to 1e-5 (unit-norm rows);
   rows must be equal except at positions whose two neighbouring scores
   lie within 1e-5, where a different summation order may swap them.
+- row_select: rows and values EQUAL, bit for bit, to the stable sort of
+  the biased scores it replaces (the same f32 add, the sort's order).
 - bias_gelu: ≤ 1 bf16 spacing (both round the same f32 GELU to bf16;
   the erfc evaluations may differ in the last f32 bit and so land on
   either side of a rounding boundary).
@@ -209,6 +211,44 @@ def test_topk_scan_rejects_wrong_inputs(cuda):
 def _bf16_ulp(x):
     _, e = np.frexp(x)
     return np.ldexp(1.0, e - 8).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,k", [(256, 20_000, 8), (256, 20_000, 256),
+                                   (3, 50_001, 64), (1, 300_000, 128),
+                                   (8, 100, 200)])
+def test_row_select_matches_stable_sort(cuda, b, n, k):
+    """BM25-shaped rows (mostly zeros, ties), every ninth bias NEG_INF;
+    one block a row (B 256) and slices plus a merge (B 1, 3, 8)."""
+    rng = np.random.default_rng(n + k)
+    scores = np.where(rng.random((b, n)) < 0.01,
+                      rng.integers(1, 9, (b, n)) * 0.5, 0.0)
+    bias = np.zeros(n, np.float32)
+    bias[::9] = NEG_INF
+    s = torch.from_numpy(scores.astype(np.float32)).to(cuda)
+    bi = torch.from_numpy(bias).to(cuda)
+    before = ttopk.LAUNCHES["row_select"]
+    v, r, admitted = ttopk.row_select(s, bi, k)
+    want_v, want_r = ttopk.stable_topk(s + bi[None, :], k)
+    assert torch.equal(r, want_r)
+    assert torch.equal(v.view(torch.int32), want_v.view(torch.int32))
+    assert ttopk.LAUNCHES["row_select"] == before + 1
+    assert 0 < admitted.item() <= b * n
+
+
+@pytest.mark.cuda
+def test_row_select_rejects_wrong_inputs(cuda):
+    s = torch.zeros((4, 512), device=cuda)
+    bias = torch.zeros(512, device=cuda)
+    before = dict(ttopk.LAUNCHES)
+    with pytest.raises(ValueError):
+        ttopk.row_select(s, bias, 257)
+    with pytest.raises(ValueError):       # contiguous, not 16-byte aligned
+        ttopk.row_select(torch.zeros(4 * 512 + 1, device=cuda)[1:]
+                         .view(4, 512), bias, 8)
+    with pytest.raises(ValueError):
+        ttopk.row_select(s, bias.cpu(), 8)
+    assert ttopk.LAUNCHES == before
 
 
 @pytest.mark.cuda

@@ -258,3 +258,179 @@ def test_slice_geometry_covers_every_row_once(n, qb, resident):
     assert s * qb <= max(resident, qb)                        # one wave
     if n >= 128 * resident:                                   # fills it
         assert s >= min(65535, max(1, resident // qb)) // 2
+
+
+# ---------------------------------------------------------------------------
+# ``row_select``, BM25's selection: the plain version (what CPU tensors
+# take, and what the CUDA kernel is held to on the card), its checks, its
+# grid, and the kernel's source.
+# ---------------------------------------------------------------------------
+
+def _bm25_like(b, n, seed, live=0.02, levels=12):
+    """BM25-shaped rows: mostly exact zeros, a few positive values drawn
+    from a few levels (ties everywhere)."""
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(1, levels + 1, size=(b, n)).astype(np.float32) * 0.37
+    return torch.from_numpy(np.where(rng.random((b, n)) < live, vals, 0.0)
+                            .astype(np.float32))
+
+
+def _lexsort_topk(biased, k):
+    """(value desc, row asc), the first k: the order ``stable_topk``
+    keeps, by numpy's lexsort."""
+    v = biased.numpy()
+    rows = np.broadcast_to(np.arange(v.shape[1]), v.shape)
+    order = np.lexsort((rows, -v), axis=1)[:, :k]
+    return np.take_along_axis(v, order, 1), order
+
+
+@pytest.mark.parametrize("case", ["zeros_ties", "ninth_masked", "all_masked",
+                                  "fewer_live_than_k", "k_past_n", "k_1"])
+def test_row_select_plain_matches_stable_topk(case):
+    b, n, k = 5, 3001, 64
+    scores = _bm25_like(b, n, seed=len(case))
+    bias = torch.zeros(n)
+    if case == "ninth_masked":
+        bias[::9] = NEG_INF
+    elif case == "all_masked":
+        bias[:] = NEG_INF
+    elif case == "fewer_live_than_k":
+        bias[:] = NEG_INF
+        bias[100:110] = 0.0           # 10 live rows, k 64
+        scores[:, 105] = 0.0          # a live zero among them
+    elif case == "k_past_n":
+        scores, bias, k = scores[:, :50].contiguous(), bias[:50], 128
+    elif case == "k_1":
+        k = 1
+    vals, rows, admitted = ttopk.row_select(scores, bias, k)
+    want_v, want_r = ttopk.stable_topk(scores + bias[None, :], k)
+    assert admitted is None
+    assert vals.dtype == torch.float32 and rows.dtype == torch.int64
+    assert vals.shape == rows.shape == (b, min(k, scores.shape[1]))
+    assert torch.equal(rows, want_r) and torch.equal(vals, want_v)
+    lex_v, lex_r = _lexsort_topk(scores + bias[None, :], k)
+    assert np.array_equal(rows.numpy(), lex_r)
+    assert np.array_equal(vals.numpy(), lex_v)
+    if case in ("all_masked", "fewer_live_than_k"):
+        # Masked rows are real entries: NEG_INF, by row, after the live.
+        live = 10 if case == "fewer_live_than_k" else 0
+        assert bool((vals[:, live:] == NEG_INF).all())
+        masked = rows[:, live:]
+        assert bool((masked[:, 1:] > masked[:, :-1]).all())
+
+
+@pytest.mark.parametrize("bad", ["scores_f64", "bias_f16", "noncontig",
+                                 "bias_noncontig", "bias_len", "k0", "dims",
+                                 "empty_rows"])
+def test_row_select_rejects(bad):
+    scores = torch.zeros((4, 64))
+    bias = torch.zeros(64)
+    k = 0 if bad == "k0" else 8
+    err = ValueError
+    if bad == "scores_f64":
+        scores, err = scores.double(), TypeError
+    elif bad == "bias_f16":
+        bias, err = bias.half(), TypeError
+    elif bad == "noncontig":
+        scores = torch.zeros((64, 4)).T
+    elif bad == "bias_noncontig":
+        bias = torch.zeros(128)[::2]
+    elif bad == "bias_len":
+        bias = torch.zeros(63)
+    elif bad == "dims":
+        scores = torch.zeros(64)
+    elif bad == "empty_rows":
+        scores, bias = torch.zeros((4, 0)), torch.zeros(0)
+    before = dict(ttopk.LAUNCHES)
+    with pytest.raises(err):
+        ttopk.row_select(scores, bias, k)
+    assert ttopk.LAUNCHES == before
+
+
+@pytest.mark.parametrize("b,n", [
+    (256, 1 << 20), (256, 262_144), (132, 171_332), (1, 1 << 20),
+    (4, 1 << 20), (4, 262_144), (1, 77), (131, 5_000), (2, 16_385),
+    (1, 1 << 30), (64, 600_001),
+])
+def test_row_slices_covers_every_row_once(b, n):
+    sms, step, warps = 132, 512, 16
+    s, rows = ttopk.row_slices(b, n, sms=sms, step_rows=step,
+                               min_block_rows=2 * warps * step)
+    assert rows % step == 0 and 1 <= s <= 65535
+    starts = [i * rows for i in range(s)]
+    stops = [min(n, a + rows) for a in starts]
+    assert starts[0] == 0 and stops[-1] == n
+    assert all(b_ == a2 for b_, a2 in zip(stops, starts[1:]))  # no gap
+    assert all(a < b_ for a, b_ in zip(starts, stops))         # none empty
+    if b >= sms:
+        assert s == 1                 # one block a row: one launch
+    else:
+        assert b * s <= 2 * sms + b   # about two blocks an SM
+        if n >= 2 * sms * 2 * warps * step:
+            assert b * s >= sms       # the card is filled
+
+
+@pytest.mark.parametrize("k", [1, 8, 64, 256])
+def test_row_select_slices_then_merge_is_exact(k):
+    """Each slice's first k (rows global), merged by (value desc, row
+    asc), is the whole row's first k: the two launches' plan, in plain
+    PyTorch, over the slices ``row_slices`` cuts."""
+    b, n = 3, 20_000
+    scores = _bm25_like(b, n, seed=k, live=0.01)
+    bias = torch.zeros(n)
+    bias[::9] = NEG_INF
+    s, rows = ttopk.row_slices(b, n, sms=132, step_rows=512,
+                               min_block_rows=1024)
+    assert s > 1
+    vals, idx = [], []
+    for start in range(0, n, rows):
+        v, r, _ = ttopk.row_select(scores[:, start:start + rows].contiguous(),
+                                   bias[start:start + rows].contiguous(), k)
+        vals.append(v)
+        idx.append(r + start)
+    vals, idx = torch.cat(vals, 1), torch.cat(idx, 1)
+    order = ttopk.lexsort_desc(vals, idx)[:, :k]
+    want_v, want_r = ttopk.stable_topk(scores + bias[None, :], k)
+    assert torch.equal(idx.gather(1, order), want_r)
+    assert torch.equal(vals.gather(1, order), want_v)
+
+
+def test_row_select_kernel_names_stay_off_the_scan_roofline():
+    """rag_bench charges every kernel whose name holds topk_scan_kernel or
+    topk_merge_kernel to the dense scan: row_select's kernels must not."""
+    import re
+    from pathlib import Path
+
+    src = (Path(ttopk.__file__).parent / "csrc" / "row_select.cu").read_text()
+    names = set(re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+        src))
+    assert names == {"row_select_kernel", "row_select_merge_kernel"}
+    for name in names:
+        assert "topk_scan_kernel" not in name
+        assert "topk_merge_kernel" not in name
+
+
+def test_store_refuses_a_selection_wider_than_the_card_takes():
+    """On CUDA ``hybrid_step_inputs`` raises before anything is launched
+    when the BM25 selection is wider than ROW_SELECT_MAX_K; the CPU takes
+    any width."""
+    from classmate_rag_tpu_torch.index.store import IndexStore
+
+    rng = np.random.default_rng(0)
+    emb = _rand(300, 16)
+    store = IndexStore(16, slab_rows=512, terms_per_chunk=8, device="cpu",
+                       select="approx")
+    store.upsert([f"c{i}" for i in range(300)], emb,
+                 [["alpha", "beta", "gamma"][: 1 + i % 3] for i in range(300)],
+                 [{"course": "x"}] * 300)
+    q = emb[:2] + 0.01 * rng.standard_normal((2, 16)).astype(np.float32)
+    assert store.select_mode == "approx"
+    out = store.hybrid_topk_batch(q, [["alpha"], ["beta"]], k_bm25=96)
+    assert tuple(out.rows.shape) == (2, 8)
+    store.device = torch.device("cuda")  # what the check reads, nothing more
+    with pytest.raises(ValueError, match="k_bm25=65"):
+        store.hybrid_topk_batch(q, [["alpha"], ["beta"]], k_bm25=65)
+    store.select = "exact"
+    with pytest.raises(ValueError, match="k_bm25=257"):
+        store.hybrid_topk_batch(q, [["alpha"], ["beta"]], k_bm25=257)
