@@ -3,12 +3,14 @@
     python3 -m rag_bench.calibrate --workload <cell> --seconds <s> --seeds <n> [<n> ...]
 
 For each seed, one run of the cell as ``run.py`` makes it (the cell's own
-sizes and load, a window of ``--seconds``), then the program's three
-numbers and the control's: the reference computed one precision step
-lower (``reference/hybrid.py``, ``precision="control"``) put in the
-program's place and judged the same way. One JSON line a seed. The
-benchmark's own runs never run the control. Like a run of the benchmark,
-it needs a CUDA card: without one it exits 2 and prints nothing.
+sizes and load, a window of ``--seconds``), then the program's numbers
+and the control's, both from the cell's kind (``kinds/<kind>.py``: its
+``check`` and its ``CONTROL``, for ``hybrid`` the reference one precision
+step lower put in the program's place and judged the same way). A kind
+without a control gets ``"control": null`` and a note on standard
+error. One JSON line a seed. The benchmark's own runs never run the
+control. Like a run of the benchmark, it needs a CUDA card: without one
+it exits 2 and prints nothing.
 """
 
 from __future__ import annotations
@@ -40,6 +42,9 @@ def main(argv=None) -> int:
         print(f"rag_bench: {args.workload} needs {cell.chips} CUDA card(s)",
               file=sys.stderr)
         return 2
+    control = spec.load_kind(cell.kind).CONTROL
+    print(f"rag_bench: control of the kind {cell.kind}: {control}",
+          file=sys.stderr)
     t0 = _T0
     for seed in args.seeds:
         res = run.run_cell(cell, seed, args.seconds, False, "cuda:0", t0,
@@ -48,7 +53,7 @@ def main(argv=None) -> int:
             "workload": args.workload, "seed": seed,
             "correct": res["correct"],
             "program": {k: v["value"] for k, v in res["checks"].items()},
-            "control": res["control"],
+            "control": res.get("control"),
             "limits": {k: v["limit"] for k, v in res["checks"].items()},
             "info": res["info"],
         }), flush=True)

@@ -1,43 +1,15 @@
 """Closed loop: one client sends the pool's batches in turn, each right
-after the previous one's rows and scores reached the host."""
+after the previous one's rows and scores reached the host. A served
+batch's ``out`` is (rows, fused, vec_dist, bm25) in numpy."""
 
 from __future__ import annotations
 
 import sys
 import time
 import traceback
-from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Sequence
 
-
-@dataclass
-class Served:
-    pool: int                 # index of the batch in the pool
-    t_call: int               # perf_counter_ns at the call into the store
-    t_return: int             # ... when the call returned
-    t_fetched: int            # ... when the results were on the host
-    queries: int
-    out: Optional[Tuple[Any, ...]]   # (rows, fused, vec_dist, bm25) numpy
-    error: Optional[str] = None
-
-
-@dataclass
-class Window:
-    served: List[Served] = field(default_factory=list)
-
-    @property
-    def seconds(self) -> float:
-        if not self.served:
-            return 0.0
-        return (self.served[-1].t_fetched - self.served[0].t_call) / 1e9
-
-    @property
-    def attempted(self) -> int:
-        return sum(s.queries for s in self.served)
-
-    @property
-    def failed(self) -> int:
-        return sum(s.queries for s in self.served if s.out is None)
+from rag_bench.window import Served, Window
 
 
 def serve_one(store, batch, knobs: Dict[str, Any], pool: int) -> Served:

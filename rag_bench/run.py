@@ -3,16 +3,17 @@
     python3 -m rag_bench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 from the root of a checkout, on a machine with the cards the cell asks
-for. It makes the cell's corpus and traffic from the seed, builds the
-port's ``IndexStore`` over it, serves every batch of the traffic's pool
-once (set-up ends there), then drives the closed loop for ``--seconds``.
-With ``--trace 0`` it reports the cell's end-to-end metrics, with
-``--trace 1`` its per-layer ones from a torch.profiler trace of the
-window and the benchmark's own host spans. After the window, with the
-program's state freed, it holds a sample of the window's answers against
-the plain reference (``judge.py``). The last line of standard output is
-one JSON object; the numbers compared, each beside its limit, are the
-last lines of standard error and the line's last key.
+for. The harness here is the same for every cell; what the cell runs is
+its kind's (``kinds/<kind>.py``, named by the configuration): the kind
+makes the inputs from the seed and builds and warms the program's state
+over every batch of the pool (set-up ends there), then drives the
+traffic's loop for ``--seconds``. With ``--trace 0`` the run reports the
+cell's end-to-end metrics, with ``--trace 1`` its per-layer ones from a
+torch.profiler trace of the window and the window's own host spans.
+After the window, with the program's state freed, the kind holds the
+window's outputs against its plain reference. The last line of standard
+output is one JSON object; the numbers compared, each beside its limit,
+are the last lines of standard error and the line's last key.
 """
 
 from __future__ import annotations
@@ -30,10 +31,9 @@ import math  # noqa: E402
 import os  # noqa: E402
 import re  # noqa: E402
 import sys  # noqa: E402
-import tempfile  # noqa: E402
-from dataclasses import dataclass  # noqa: E402
 from pathlib import Path  # noqa: E402
-from typing import Any, Callable, Dict, List, Optional  # noqa: E402
+from types import SimpleNamespace  # noqa: E402
+from typing import Dict, List  # noqa: E402
 
 _CHECKOUT = Path(__file__).resolve().parents[1]
 # Kernel and build caches at fixed paths inside the checkout; a library
@@ -51,10 +51,7 @@ os.environ["MKL_NUM_THREADS"] = "1"
 
 import numpy as np  # noqa: E402
 
-from rag_bench import judge, spec  # noqa: E402
-from rag_bench.corpus import make_batches, make_corpus  # noqa: E402
-from rag_bench.loops.closed import serve_one  # noqa: E402
-from rag_bench.reference.hybrid import Reference  # noqa: E402
+from rag_bench import spec  # noqa: E402
 from rag_bench.trace import (  # noqa: E402
     Trace,
     device_ops,
@@ -66,7 +63,6 @@ from rag_bench.trace import (  # noqa: E402
 from rag_bench.work import peaks  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "classmate_rag_tpu")
-UPSERT_ROWS = 65536
 
 
 def forbidden_modules() -> List[str]:
@@ -76,16 +72,16 @@ def forbidden_modules() -> List[str]:
                   & set(FORBIDDEN))
 
 
-@dataclass
-class Context:
-    """What a metric reader reads (``metrics/<name>.py``)."""
-    window: Any                     # loops.closed.Window
-    setup_s: float
-    trace: Optional[Trace]
-    peak: Optional[tuple]           # (bf16 FLOP/s, bytes/s) or None
-    dim: int
-    scope_rows: Callable[[int], int]     # pool batch -> rows it searches
-    postings: Callable[[int], int]       # pool batch -> posting entries
+class Context(SimpleNamespace):
+    """What a metric reader reads (``metrics/<name>.py``): the window
+    (``window.py``), ``setup_s``, the device ``trace`` (None untraced) and
+    the card's ``peak`` (bf16 FLOP/s, bytes/s; None for a card not in
+    ``work.py``'s table), and the values of the cell's kind as further
+    attributes (``hybrid``: ``dim``, ``scope_rows``, ``postings``)."""
+
+    def __init__(self, window, setup_s: float, trace, peak, **values):
+        super().__init__(window=window, setup_s=setup_s, trace=trace,
+                         peak=peak, **values)
 
 
 def read_metric(name: str, ctx: Context):
@@ -134,68 +130,49 @@ def breakdown(tr: Trace, window) -> Dict[str, list]:
 def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
              device, t_start: float, control: bool = False) -> Dict:
     """One run of ``cell`` on ``device``; the result line's object (and,
-    with ``control``, the control's readings under ``control``)."""
+    with ``control``, the control's readings under ``control`` where the
+    cell's kind has a control)."""
     import torch
-
-    from classmate_rag_tpu_torch.index.store import IndexStore
 
     dev = torch.device(device)
     cuda = dev.type == "cuda"
-    cfg, traffic, r = cell.config, cell.traffic, cell.config["retrieval"]
-    if int(traffic.get("clients", 1)) != 1:
-        raise ValueError("the closed loop drives one client")
-    loop = importlib.import_module(f"rag_bench.loops.{traffic['loop']}")
+    kind = spec.load_kind(cell.kind)
+    loop = importlib.import_module(f"rag_bench.loops.{cell.traffic['loop']}")
 
     phases = {"start": time.perf_counter() - t_start}
-    corpus = make_corpus(cfg, seed, dev)
-    batches = make_batches(corpus, cfg, traffic, seed)
-    phases["inputs"] = time.perf_counter() - t_start
+
+    def mark(phase: str) -> None:
+        phases[phase] = time.perf_counter() - t_start
+
+    run = kind.Run(cell, seed, dev)
+    mark("inputs")
     if cuda:
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-    knobs = {k: r[k] for k in ("k_vector", "k_bm25", "top_k", "pool",
-                               "use_mmr", "mmr_lambda", "rrf_k")}
     prof = None
-    with tempfile.TemporaryDirectory(prefix="rag_bench_") as tmp:
-        store = IndexStore(
-            int(cfg["dim"]), tmp, slab_rows=r["slab_rows"],
-            terms_per_chunk=r["terms_per_chunk"], rescore=r["rescore"],
-            rescore_pool=r["rescore_pool"], select=r["select"], device=dev)
-        ids = [f"p{i}" for i in range(corpus.n)]
-        for s in range(0, corpus.n, UPSERT_ROWS):
-            e = min(s + UPSERT_ROWS, corpus.n)
-            store.upsert(ids[s:e], corpus.emb[s:e], corpus.token_lists(s, e),
-                         corpus.metadata(s, e))
-        del ids
-        phases["upsert"] = time.perf_counter() - t_start
-        # Warm-up: the first batch places the store; every batch of the
-        # pool runs once, so the window meets no shape it has not seen.
-        for p, b in enumerate(batches):
-            if serve_one(store, b, knobs, p).out is None:
-                raise RuntimeError(f"warm-up batch {p} failed")
-            if p == 0:
-                phases["first_batch"] = time.perf_counter() - t_start
+    try:
+        run.build(mark)
         if cuda:
             torch.cuda.synchronize(dev)
         setup_s = time.perf_counter() - t_start
         phases["warm_up"] = setup_s
-        route = store.select_mode
         if trace and cuda:
             from torch.profiler import ProfilerActivity, profile
 
             offset = host_offset_ns()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                window = loop.drive(store, batches, seconds, knobs)
+                window = run.drive(loop, seconds)
                 torch.cuda.synchronize(dev)
         else:
-            window = loop.drive(store, batches, seconds, knobs)
+            window = run.drive(loop, seconds)
         memory_peak = (int(torch.cuda.max_memory_allocated(dev)) if cuda
                        else 0)
-        del store
-        gc.collect()
-        if cuda:
-            torch.cuda.empty_cache()
+    finally:
+        run.free()
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
 
     tr = None
     if prof is not None:
@@ -204,40 +181,11 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
 
     # Correctness, with the program's state freed.
     t_check = time.perf_counter()
-    picks = judge.sample(window, batches, int(cell.limits["sample"]), seed)
-    queries = judge.queries_of(batches, picks)
-    served = judge.served_answers(window, picks)
-    ref = Reference(corpus.tokens, corpus.offsets, corpus.emb, corpus.course,
-                    r, dev)
-    want = ref.answer(queries)
-    values = judge.readings(ref, queries, want, [served[pj] for pj in picks])
-    correct, checks = judge.verdict(values, cell.limits, window.failed)
-    correct = correct and bool(picks)
-    out_control = None
-    if control:
-        cref = Reference(corpus.tokens, corpus.offsets, corpus.emb,
-                         corpus.course, r, dev, precision="control")
-        out_control = judge.readings(ref, queries, want,
-                                     [[a] for a in cref.answer(queries)])
-        del cref
+    correct, checks, out_control = run.check(
+        window, control and kind.CONTROL is not None)
 
-    def scope_rows(pool: int) -> int:
-        c = batches[pool].course
-        return corpus.n if c is None else len(corpus.course_rows(c))
-
-    postings_of: Dict[int, int] = {}
-
-    def postings(pool: int) -> int:
-        if pool not in postings_of:
-            df = ref.okapi(batches[pool].course).df
-            words = np.unique(np.concatenate(batches[pool].term_ids))
-            words = words[words < len(df)]
-            postings_of[pool] = int(df[words].sum())
-        return postings_of[pool]
-
-    kind = torch.cuda.get_device_name(dev) if cuda else "cpu"
-    ctx = Context(window, setup_s, tr, peaks(kind), int(cfg["dim"]),
-                  scope_rows, postings)
+    card = torch.cuda.get_device_name(dev) if cuda else "cpu"
+    ctx = Context(window, setup_s, tr, peaks(card), **run.values())
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):
         v = read_metric(m["name"], ctx)
@@ -246,7 +194,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
                   file=sys.stderr)
             continue
         metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
-    device_out = {"platform": "gpu" if cuda else "cpu", "kind": kind,
+    device_out = {"platform": "gpu" if cuda else "cpu", "kind": card,
                   "count": 1, "memory_peak_bytes": memory_peak}
     result = {"correct": correct, "attempted": window.attempted,
               "failed": window.failed, "metrics": metrics,
@@ -257,9 +205,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         result["breakdown"] = breakdown(tr, window)
     result["info"] = {
         "batches": len(window.served), "window_s": window.seconds,
-        "setup_s": setup_s, "setup_phases_end_s": phases, "route": route,
-        "rows": corpus.n,
-        "sampled_queries": len(picks),
+        "setup_s": setup_s, "setup_phases_end_s": phases, **run.info,
         "check_s": time.perf_counter() - t_check,
         "kernels_traced": (sum(is_kernel(o[0]) for o in tr.ops)
                            if tr is not None else None),

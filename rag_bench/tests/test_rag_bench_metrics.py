@@ -4,8 +4,8 @@ numbers worked by hand; readers with nothing to read return None."""
 import pytest
 
 from rag_bench import run, work
-from rag_bench.loops.closed import Served, Window
 from rag_bench.trace import Trace, gaps, union_ns
+from rag_bench.window import Served, Window
 
 MS = 1_000_000
 PEAK = (989e12, 3.35e12)
@@ -26,7 +26,7 @@ def canned(trace=True):
         ("elementwise", 14 * MS, 20 * MS),            # overlaps the merge
     ]
     tr = Trace(ops, host_offset_ns=0) if trace else None
-    return run.Context(w, 12.5, tr, PEAK, 768,
+    return run.Context(w, 12.5, tr, PEAK, dim=768,
                        scope_rows=lambda p: 1_000_000,
                        postings=lambda p: 3_000_000)
 
@@ -82,7 +82,7 @@ def test_batch_p95_over_all_batches():
     w = Window([Served(i % 3, i * 100 * MS, i * 100 * MS + MS,
                        i * 100 * MS + (i + 1) * MS, 1, ())
                 for i in range(100)])
-    ctx = run.Context(w, 1.0, None, None, 8, lambda p: 1, lambda p: 1)
+    ctx = run.Context(w, 1.0, None, None)
     # Latencies 1..100 ms: numpy's linear 95th percentile is 95.05.
     assert run.read_metric("batch_latency_p95_ms", ctx) == pytest.approx(
         95.05)
