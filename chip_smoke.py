@@ -3184,7 +3184,7 @@ def f32_last_logits(D, cfg, params, ids, pos, mask, dev) -> torch.Tensor:
     x = D._embed(params["tok_emb"], ids)
     for i in range(cfg.layers):
         lp = {key: w[i].float() for key, w in params["layers"].items()}
-        x = D._layer(lp, x, cos, sin, k[0], v[0], 0, mask, c32)
+        x = D._layer(lp, x, cos, sin, (k[0], v[0]), 0, mask, c32, i)
     x = D._rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
     return D._mm(x, params["lm_head"].float(), torch.float32)
 

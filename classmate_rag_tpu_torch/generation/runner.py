@@ -44,6 +44,10 @@ _FAILED_GGUF_RESOLVES: set = set()
 
 Messages = Sequence[Dict[str, str]]
 
+# GGUF architectures of the MLA/MoE decoder (DeepSeek-V2), which the
+# GGUF reader does not map.
+_LATENT_GGUF_ARCHS = ("deepseek2",)
+
 # What a GGUF that does not parse raises. ``auto`` falls through past
 # such a file, as the JAX package does; a missing card or a CUDA error
 # (RuntimeError) always propagates.
@@ -211,7 +215,13 @@ class DecodeRunner:
     """The port's decoder (greedy/nucleus) behind a chat template, on
     one device (None → CUDA), or dp×tp over ``mesh`` (a ``DeviceMesh``;
     with ``TPU_DECODE_TP`` set and more than one card of the device's
-    kind, ``auto_mesh_for`` over those cards)."""
+    kind, ``auto_mesh_for`` over those cards).
+
+    An MLA/MoE ``config`` (DeepSeek-V2) runs on one device in bf16: its
+    weights come from ``hf_state`` (HF name → tensor, e.g. already on the
+    card), an HF checkpoint directory, or a seeded draw on the device. It
+    refuses int8 weights, a mesh or ``TPU_DECODE_TP`` over several cards,
+    and a GGUF of architecture ``deepseek2``, with a ValueError."""
 
     def __init__(
         self,
@@ -222,6 +232,7 @@ class DecodeRunner:
         quantize: Optional[bool] = None,
         device: DeviceLike = None,
         mesh=None,
+        hf_state=None,
     ) -> None:
         from classmate_rag_tpu_torch.embeddings.tokenizer import load_tokenizer
         from classmate_rag_tpu_torch.models.decoder import (
@@ -229,8 +240,10 @@ class DecodeRunner:
             init_params,
             load_params_from_hf,
             make_generate_fn,
-            params_from_numpy,
-            quantize_decoder_params_host,
+        )
+        from classmate_rag_tpu_torch.models.hf_state import (
+            SeededHFState,
+            params_from_hf_state,
         )
 
         self.device = (mesh[0][0] if mesh is not None
@@ -257,6 +270,12 @@ class DecodeRunner:
 
             gguf_path = Path(model_dir)
             gguf_metadata = read_gguf_header(gguf_path)[0]
+            arch = gguf_metadata.get("general.architecture")
+            if arch in _LATENT_GGUF_ARCHS:
+                raise ValueError(
+                    f"GGUF {gguf_path.name}: architecture {arch!r} (MLA, "
+                    "sparse experts) does not load from GGUF in the port; "
+                    "give its HF checkpoint directory instead")
             config, params = load_params_from_gguf(
                 gguf_path, config, host=True
             )
@@ -305,13 +324,69 @@ class DecodeRunner:
         self.model_name = (
             gguf_path.name if gguf_path else f"tpu-decoder-{self.config.hidden}"
         )
-        if model_dir:
+        if self.config.latent:
+            self._refuse_for_latent(quantize, mesh)
+            if hf_state is not None:
+                params = params_from_hf_state(hf_state, self.config,
+                                              self.device)
+            elif model_dir:
+                params = load_params_from_hf(model_dir, self.config,
+                                             self.device)
+        elif hf_state is not None:
+            raise ValueError("hf_state is taken for an MLA/MoE config only")
+        elif model_dir:
             params = load_params_from_hf(model_dir, self.config)
         self.has_pretrained_weights = params is not None
-        if params is None:
+        if params is None and self.config.latent:
+            params = params_from_hf_state(
+                SeededHFState(self.config, self.model_name, self.device),
+                self.config, self.device)
+        elif params is None:
             params = init_params(self.config, self.model_name)
         self._mesh = mesh
-        if mesh is None and _flag("TPU_DECODE_TP"):
+        if self.config.latent:
+            # Placed on the device by the converter: no host tree.
+            self.params, self._data_axis, self.quantized = params, 1, False
+        else:
+            self._place_dense(params, quantize)
+        del params
+        if gguf_metadata is not None and gguf_metadata.get(
+            "tokenizer.ggml.tokens"
+        ):
+            from classmate_rag_tpu_torch.models.gguf import GGUFTokenizer
+
+            self.tokenizer = GGUFTokenizer(gguf_metadata, max_length=max_seq)
+        else:
+            self.tokenizer = load_tokenizer(
+                model_dir, max_length=max_seq,
+                vocab_size=self.config.vocab_size,
+            )
+        # The KV cache and RoPE run to max_seq; don't exceed what the
+        # checkpoint was trained for.
+        max_seq = min(max_seq, self.config.max_seq)
+        max_new_tokens = min(max_new_tokens, max(max_seq - 64, 16))
+        self.max_new = max_new_tokens
+        self.max_seq = max_seq
+        if self._mesh is not None:
+            from classmate_rag_tpu_torch.parallel.tp_decode import (
+                make_tp_generate_fn,
+            )
+
+            self._generate = make_tp_generate_fn(
+                self.config, self._mesh, max_seq, max_new_tokens)
+        else:
+            self._generate = make_generate_fn(self.config, max_seq,
+                                              max_new_tokens)
+
+    def _place_dense(self, params, quantize: bool) -> None:
+        """A GQA tree (numpy) on the device, int8-quantized, or split over
+        the mesh (``TPU_DECODE_TP`` over several cards)."""
+        from classmate_rag_tpu_torch.models.decoder import (
+            params_from_numpy,
+            quantize_decoder_params_host,
+        )
+
+        if self._mesh is None and _flag("TPU_DECODE_TP"):
             from classmate_rag_tpu_torch.parallel.mesh import local_devices
 
             cards = local_devices(self.device)
@@ -350,34 +425,23 @@ class DecodeRunner:
             self.params = params_from_numpy(params, self.config,
                                             self.device)
             self._data_axis = 1
-        del params
-        if gguf_metadata is not None and gguf_metadata.get(
-            "tokenizer.ggml.tokens"
-        ):
-            from classmate_rag_tpu_torch.models.gguf import GGUFTokenizer
 
-            self.tokenizer = GGUFTokenizer(gguf_metadata, max_length=max_seq)
-        else:
-            self.tokenizer = load_tokenizer(
-                model_dir, max_length=max_seq,
-                vocab_size=self.config.vocab_size,
-            )
-        # The KV cache and RoPE run to max_seq; don't exceed what the
-        # checkpoint was trained for.
-        max_seq = min(max_seq, self.config.max_seq)
-        max_new_tokens = min(max_new_tokens, max(max_seq - 64, 16))
-        self.max_new = max_new_tokens
-        self.max_seq = max_seq
-        if self._mesh is not None:
-            from classmate_rag_tpu_torch.parallel.tp_decode import (
-                make_tp_generate_fn,
-            )
+    def _refuse_for_latent(self, quantize: bool, mesh) -> None:
+        what = None
+        if quantize:
+            what = "int8 W8A8 weights (TPU_DECODE_INT8)"
+        elif mesh is not None:
+            what = "a dp×tp device mesh"
+        elif _flag("TPU_DECODE_TP"):
+            from classmate_rag_tpu_torch.parallel.mesh import local_devices
 
-            self._generate = make_tp_generate_fn(
-                self.config, self._mesh, max_seq, max_new_tokens)
-        else:
-            self._generate = make_generate_fn(self.config, max_seq,
-                                              max_new_tokens)
+            if len(local_devices(self.device)) > 1:
+                what = "tensor-parallel decode over several cards " \
+                       "(TPU_DECODE_TP)"
+        if what:
+            raise ValueError(
+                f"an MLA/MoE decoder (DeepSeek-V2) runs in bf16 on one "
+                f"device; the port does not run it with {what}")
 
     def _format_chat(self, messages: Messages) -> str:
         parts = []
@@ -389,13 +453,15 @@ class DecodeRunner:
     def generate_ids_batch(self, prompt_ids_list: Sequence[List[int]],
                            seed: int = 42, temperature: float = 0.0,
                            top_p: float = 0.95,
-                           max_tokens: Optional[int] = None) -> List[List[int]]:
+                           max_tokens: Optional[int] = None,
+                           on_logits=None) -> List[List[int]]:
         """ONE batched decode for several prompts (left-padded to the
         shared width; the batch pads to a power of two, as the JAX
         package's does for its compile cache). Returns eos-stripped ids
         per prompt, truncated at the FIRST eos (any declared id stops the
         row) and clamped to ``max_tokens`` when given (the decode still
-        runs the static max_new horizon)."""
+        runs the static max_new horizon). ``on_logits(step, logits)``
+        sees each step's [B, V] logits before sampling (one device)."""
         b = len(prompt_ids_list)
         if b == 0:
             return []
@@ -410,10 +476,11 @@ class DecodeRunner:
             ids = prompt_ids[-width:]
             arr[i, width - len(ids):] = ids
             lens[i] = len(ids)
+        extra = {} if on_logits is None else {"on_logits": on_logits}
         with torch.inference_mode():
             toks = self._generate(
                 self.params, arr, lens, seed, temperature, top_p,
-                self.eos_ids,
+                self.eos_ids, **extra,
             )
         out = toks.cpu().numpy()
         cap = self.max_new if max_tokens is None else max(

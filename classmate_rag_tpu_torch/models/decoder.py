@@ -27,6 +27,15 @@ loop.
   ``torch.Generator`` seeded by ``seed`` (JAX's key stream cannot be
   reproduced); greedy decoding (temperature <= 0) gives JAX's tokens.
 
+DeepSeek-V2 (``model_type`` deepseek_v2, ``DecoderConfig.deepseek_v2_lite``)
+runs through the same ``forward``, ``decode_loop`` and
+``make_generate_fn``: a config with ``mla`` attends with multi-head latent
+attention over a latent cache [L, B, S, kv_lora_rank + qk_rope_dim]
+(``models/mla.py``), and with ``moe`` its layers from ``first_dense`` on
+run sparse experts (``models/moe.py``). Its tree is a list of per-layer
+dicts (the dense and the expert layers differ), built on the device by
+``hf_state.params_from_hf_state`` from an HF-named state dict.
+
 Every entry point runs on the device of the parameters it is given;
 ``params_from_numpy(..., device=None)`` places them on CUDA. A layer is
 its attention and SwiGLU blocks (``_attention``, ``_mlp``) and the
@@ -39,6 +48,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+from contextlib import contextmanager
 from hashlib import blake2b
 from pathlib import Path
 from typing import Any, Dict, NamedTuple, Optional, Tuple
@@ -53,6 +63,7 @@ from classmate_rag_tpu_torch.device import (
     resolve_device,
 )
 from classmate_rag_tpu_torch.embeddings.model import mm_f32
+from classmate_rag_tpu_torch.utils.metrics import metrics
 from classmate_rag_tpu_torch.utils.numerics import NEG_INF
 
 
@@ -74,10 +85,22 @@ class DecoderConfig:
     qkv_bias: bool = False
     qk_norm: bool = False
     head_dim_override: Optional[int] = None
+    # DeepSeek-V2: latent attention (``mla.MLAConfig``) and sparse
+    # experts (``moe.MoEConfig``); None in the dense GQA families.
+    mla: Optional[Any] = None
+    moe: Optional[Any] = None
 
     @property
     def head_dim(self) -> int:
+        if self.mla is not None:
+            return self.mla.qk_nope_dim + self.mla.qk_rope_dim
         return self.head_dim_override or self.hidden // self.heads
+
+    @property
+    def latent(self) -> bool:
+        """Whether the tree and cache are the MLA/MoE kind (per-layer
+        dicts, one latent cache) rather than the stacked GQA kind."""
+        return self.mla is not None or self.moe is not None
 
     @classmethod
     def small(cls) -> "DecoderConfig":
@@ -108,6 +131,30 @@ class DecoderConfig:
                    head_dim_override=128)
 
     @classmethod
+    def deepseek_v2_lite(cls) -> "DecoderConfig":
+        """DeepSeek-V2-Lite's published config.json (15.7 B parameters):
+        MLA without a query LoRA, one dense layer, 26 layers of 64 routed
+        experts (top-6) and 2 shared, YaRN RoPE (factor 40)."""
+        return cls.from_hf_dict({
+            "model_type": "deepseek_v2", "vocab_size": 102400,
+            "hidden_size": 2048, "num_hidden_layers": 27,
+            "num_attention_heads": 16, "num_key_value_heads": 16,
+            "intermediate_size": 10944, "max_position_embeddings": 163840,
+            "rope_theta": 10000, "rms_norm_eps": 1e-6,
+            "kv_lora_rank": 512, "q_lora_rank": None,
+            "qk_nope_head_dim": 128, "qk_rope_head_dim": 64,
+            "v_head_dim": 128, "n_routed_experts": 64,
+            "num_experts_per_tok": 6, "moe_intermediate_size": 1408,
+            "n_shared_experts": 2, "first_k_dense_replace": 1,
+            "moe_layer_freq": 1, "routed_scaling_factor": 1.0,
+            "norm_topk_prob": False, "topk_method": "greedy",
+            "scoring_func": "softmax",
+            "rope_scaling": {"type": "yarn", "factor": 40,
+                             "original_max_position_embeddings": 4096,
+                             "beta_fast": 32, "beta_slow": 1,
+                             "mscale": 0.707, "mscale_all_dim": 0.707}})
+
+    @classmethod
     def from_hf_config(cls, model_dir: str | Path) -> Optional["DecoderConfig"]:
         """Build the config from an HF checkpoint's config.json. None when
         no readable config is present."""
@@ -118,8 +165,18 @@ class DecoderConfig:
             raw = json.loads(path.read_text(encoding="utf-8"))
         except (OSError, ValueError):
             return None
+        return cls.from_hf_dict(raw)
+
+    @classmethod
+    def from_hf_dict(cls, raw: Dict[str, Any]) -> Optional["DecoderConfig"]:
+        """``from_hf_config`` of a parsed config.json. None when a key is
+        missing or unreadable; a DeepSeek-V2 variant the port does not
+        run (a query LoRA, grouped or sigmoid routing, renormalised
+        top-k, sparse layers at a stride) raises NotImplementedError."""
         try:
             model_type = str(raw.get("model_type", "llama")).lower()
+            if model_type == "deepseek_v2":
+                return cls._from_deepseek_v2(raw)
             # Qwen2's HF module hardcodes bias=True on q/k/v; LLaMA and
             # Qwen3 read it from `attention_bias` (default False).
             qkv_bias = bool(raw.get("attention_bias", model_type == "qwen2"))
@@ -142,6 +199,62 @@ class DecoderConfig:
             )
         except (KeyError, TypeError, ValueError):
             return None
+
+    @classmethod
+    def _from_deepseek_v2(cls, raw: Dict[str, Any]) -> "DecoderConfig":
+        from classmate_rag_tpu_torch.models.mla import MLAConfig, Yarn
+        from classmate_rag_tpu_torch.models.moe import MoEConfig
+
+        refused = [what for what, bad in (
+            ("a query LoRA (q_lora_rank)", raw.get("q_lora_rank")),
+            ("attention biases", raw.get("attention_bias")),
+            ("top-k method other than greedy",
+             raw.get("topk_method", "greedy") != "greedy"),
+            ("a router scoring other than softmax",
+             raw.get("scoring_func", "softmax") != "softmax"),
+            ("renormalised top-k weights", raw.get("norm_topk_prob")),
+            ("expert layers at a stride (moe_layer_freq != 1)",
+             int(raw.get("moe_layer_freq", 1)) != 1),
+        ) if bad]
+        rs = raw.get("rope_scaling")
+        if rs and rs.get("type", rs.get("rope_type")) != "yarn":
+            refused.append(f"rope_scaling {rs!r}")
+        if refused:
+            raise NotImplementedError(
+                "this DeepSeek-V2 variant is not supported by the port's "
+                "decoder: " + ", ".join(refused))
+        yarn = None if not rs else Yarn(
+            factor=float(rs["factor"]),
+            original_max_seq=int(rs["original_max_position_embeddings"]),
+            beta_fast=float(rs.get("beta_fast", 32)),
+            beta_slow=float(rs.get("beta_slow", 1)),
+            mscale=float(rs.get("mscale", 1)),
+            mscale_all_dim=float(rs.get("mscale_all_dim", 0)))
+        heads = int(raw["num_attention_heads"])
+        n_routed = raw.get("n_routed_experts")
+        return cls(
+            vocab_size=int(raw["vocab_size"]),
+            hidden=int(raw["hidden_size"]),
+            layers=int(raw["num_hidden_layers"]),
+            heads=heads,
+            kv_heads=int(raw.get("num_key_value_heads", heads)),
+            ffn=int(raw["intermediate_size"]),
+            max_seq=int(raw.get("max_position_embeddings", 8192)),
+            rope_theta=float(raw.get("rope_theta", 10000.0)),
+            norm_eps=float(raw.get("rms_norm_eps", 1e-6)),
+            mla=MLAConfig(
+                kv_lora_rank=int(raw["kv_lora_rank"]),
+                qk_nope_dim=int(raw["qk_nope_head_dim"]),
+                qk_rope_dim=int(raw["qk_rope_head_dim"]),
+                v_head_dim=int(raw["v_head_dim"]), yarn=yarn),
+            moe=None if not n_routed else MoEConfig(
+                n_experts=int(n_routed),
+                experts_per_token=int(raw["num_experts_per_tok"]),
+                expert_ffn=int(raw["moe_intermediate_size"]),
+                n_shared=int(raw.get("n_shared_experts") or 0),
+                first_dense=int(raw.get("first_k_dense_replace", 0)),
+                routed_scale=float(raw.get("routed_scaling_factor", 1.0))),
+        )
 
 
 Params = Dict[str, Any]
@@ -300,6 +413,11 @@ def params_from_numpy(tree: Params, config: DecoderConfig,
 def init_params(config: DecoderConfig, seed_key: str) -> Params:
     """Deterministic random params as a numpy tree, drawn value for value
     as the JAX package's ``init_params`` draws them."""
+    if config.latent:
+        raise ValueError(
+            "init_params draws the stacked GQA tree on the host; an MLA/MoE "
+            "config draws on the device: hf_state.SeededHFState and "
+            "params_from_hf_state")
     seed = int.from_bytes(blake2b(seed_key.encode(), digest_size=4).digest(), "little")
     rng = np.random.default_rng(seed)
     h, L, ff = config.hidden, config.layers, config.ffn
@@ -352,10 +470,17 @@ def _read_checkpoint(d: Path) -> Optional[Dict[str, np.ndarray]]:
     return sd
 
 
-def load_params_from_hf(model_dir: str, config: DecoderConfig) -> Optional[Params]:
+def load_params_from_hf(model_dir: str, config: DecoderConfig,
+                        device: DeviceLike = None) -> Optional[Params]:
     """Convert an HF LLaMA/Qwen2/Qwen3 checkpoint into the stacked numpy
     tree; None when no weight file is found, a tensor is missing or the
-    shapes are not the config's."""
+    shapes are not the config's. A DeepSeek-V2 checkpoint (an MLA/MoE
+    config) converts on ``device`` (None → CUDA) through
+    ``hf_state.params_from_hf_state``: the tree is then of tensors."""
+    if config.latent:
+        from classmate_rag_tpu_torch.models import hf_state
+
+        return hf_state.load_hf_checkpoint(Path(model_dir), config, device)
     sd = _read_checkpoint(Path(model_dir))
     if sd is None:
         return None
@@ -558,13 +683,28 @@ def _mlp(lp: Params, hidden: torch.Tensor,
     return _mm(ff.to(cdtype), lp["down_w"], cdtype)
 
 
-def _layer(lp: Params, hidden: torch.Tensor, cos, sin,
-           k_cache: torch.Tensor, v_cache: torch.Tensor, offset: int,
-           attn_mask: torch.Tensor, config: DecoderConfig) -> torch.Tensor:
-    """One decoder layer; writes this step's K/V into the layer's cache
-    ([B, KH, S, D]) at slots [offset, offset + T)."""
-    hidden = hidden + _attention(lp, hidden, cos, sin, k_cache, v_cache,
-                                 offset, attn_mask, config)
+def _layer(lp: Params, hidden: torch.Tensor, cos, sin, cache, offset: int,
+           attn_mask: torch.Tensor, config: DecoderConfig,
+           index: int) -> torch.Tensor:
+    """Decoder layer ``index``; writes this step's K/V into the layer's
+    cache at slots [offset, offset + T): a (K, V) pair [B, KH, S, D] in
+    the GQA families, the latent cache [B, S, C + R] with MLA. The FFN is
+    the layer's kind: SwiGLU, or sparse experts with ``moe``."""
+    if config.mla is not None:
+        hidden = hidden + _mla.mla_attention(lp, hidden, cos, sin, cache,
+                                             offset, attn_mask, config)
+    else:
+        hidden = hidden + _attention(lp, hidden, cos, sin, cache[0],
+                                     cache[1], offset, attn_mask, config)
+    moe = config.moe
+    if moe is not None and moe.is_moe(index):
+        return hidden + _moe.moe_ffn(lp, hidden, config,
+                                     index - moe.first_dense)
+    if config.latent:
+        normed = _rms_norm(hidden, lp["ffn_norm"], config.norm_eps)
+        return hidden + _moe.swiglu(normed.to(config.compute_dtype),
+                                    lp["gate_up_w"], lp["down_w"],
+                                    config.compute_dtype)
     return hidden + _mlp(lp, hidden, config)
 
 
@@ -577,13 +717,19 @@ def forward(
     params: Params,
     input_ids: torch.Tensor,         # [B, T]
     positions: torch.Tensor,         # [B, T] absolute positions
-    kv_cache: Tuple[torch.Tensor, torch.Tensor],  # ([L,B,KH,S,D], ...)
-    cache_offset: int,               # write slot of input_ids[:, 0]
+    kv_cache,                        # ([L,B,KH,S,D], ...) or [L,B,S,C+R]
+    cache_offset,                    # write slot of input_ids[:, 0]
     config: DecoderConfig,
     attn_mask: torch.Tensor = None,  # [B, T, S] additive f32 — REQUIRED
-) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    last_only: bool = False,
+):
     """Returns (logits [B, T, V] f32, the kv cache, written in place at
-    slots [cache_offset, cache_offset + T)).
+    slots [cache_offset, cache_offset + T)). With ``last_only`` the head
+    runs on the last position alone: logits [B, 1, V] (a prefill's
+    [B, T, V] f32 logits are T times the memory and the head's work).
+    With MLA and one position a row, ``cache_offset`` may be a [1] long
+    tensor on the device: the step then attends over all S slots under
+    ``attn_mask`` (static shapes, for a CUDA graph).
 
     ``attn_mask`` is required: a silent causal default would mask the
     left-padded prefill wrong."""
@@ -592,17 +738,35 @@ def forward(
             "forward() requires attn_mask ([B, T, S] additive f32); see "
             "make_generate_fn for the left-padded prefill/decode masks"
         )
-    k_cache, v_cache = kv_cache
-    offset = int(cache_offset)
-    if offset < 0 or offset + input_ids.shape[1] > k_cache.shape[3]:
-        raise ValueError(
-            f"cache slots [{offset}, {offset + input_ids.shape[1]}) outside "
-            f"a cache of {k_cache.shape[3]}")
-    cos, sin = _rope_tables(positions, config.head_dim, config.rope_theta)
+    if isinstance(cache_offset, torch.Tensor):
+        # A decode step's write slot on the device ([1] long): MLA only,
+        # one position a row (``_DecodeStep``); the slot is not read back.
+        if config.mla is None or input_ids.shape[1] != 1:
+            raise ValueError("a device cache_offset is one MLA position")
+        offset = cache_offset
+    else:
+        offset = int(cache_offset)
+        slots = kv_cache.shape[2] if config.latent else kv_cache[0].shape[3]
+        if offset < 0 or offset + input_ids.shape[1] > slots:
+            raise ValueError(
+                f"cache slots [{offset}, {offset + input_ids.shape[1]}) "
+                f"outside a cache of {slots}")
+    if config.mla is not None:
+        cos, sin = _mla.rope_tables(positions, config.mla, config.rope_theta)
+    else:
+        cos, sin = _rope_tables(positions, config.head_dim,
+                                config.rope_theta)
     x = _embed(params["tok_emb"], input_ids)               # [B, T, h] f32
+    layers = params["layers"]
     for i in range(config.layers):
-        x = _layer(_layer_params(params["layers"], i), x, cos, sin,
-                   k_cache[i], v_cache[i], offset, attn_mask, config)
+        if config.latent:
+            lp, cache = layers[i], kv_cache[i]
+        else:
+            lp = _layer_params(layers, i)
+            cache = (kv_cache[0][i], kv_cache[1][i])
+        x = _layer(lp, x, cos, sin, cache, offset, attn_mask, config, i)
+    if last_only:
+        x = x[:, -1:]
     x = _rms_norm(x, params["final_norm"], config.norm_eps)
     logits = _mm(x.to(config.compute_dtype), params["lm_head"],
                  config.compute_dtype)
@@ -612,11 +776,17 @@ def forward(
 def empty_cache(config: DecoderConfig, batch: int,
                 max_seq: Optional[int] = None, device: DeviceLike = None):
     """A zeroed bf16 K/V pair, [L, B, KH, S, D] each (head-major, see the
-    module docstring). Zeros, not garbage: masked slots still enter the
-    products, and NaN times a zero probability is NaN."""
+    module docstring); with MLA the latent cache [L, B, S, C + R] in
+    ``compute_dtype``, one [c ‖ k_rope] row a position and layer. Zeros,
+    not garbage: masked slots still enter the products, and NaN times a
+    zero probability is NaN."""
     S = max_seq or config.max_seq
-    shape = (config.layers, batch, config.kv_heads, S, config.head_dim)
     dev = resolve_device(device)
+    if config.mla is not None:
+        return torch.zeros((config.layers, batch, S,
+                            config.mla.latent_width),
+                           dtype=config.compute_dtype, device=dev)
+    shape = (config.layers, batch, config.kv_heads, S, config.head_dim)
     return (torch.zeros(shape, dtype=torch.bfloat16, device=dev),
             torch.zeros(shape, dtype=torch.bfloat16, device=dev))
 
@@ -652,13 +822,40 @@ def _long(x, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), dtype=torch.long).to(dev)
 
 
+@contextmanager
+def _device_span(name: str, dev: torch.device, **counts):
+    """``metrics.span`` that, under tracing on a card, also carries a CUDA
+    event pair (``cuda_events``) around the work queued inside it, for
+    its device time (read after the block, once the events are done)."""
+    with metrics.span(name, **counts) as sp:
+        if sp is None or dev.type != "cuda":
+            yield sp
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            yield sp
+        finally:
+            end.record()
+            sp.count(cuda_events=(start, end))
+
+
 def decode_loop(forward_last, dev: torch.device, prompt_ids, prompt_len,
                 seed, temperature, top_p, eos_ids, max_seq: int,
-                max_new: int) -> torch.Tensor:
+                max_new: int, on_logits=None) -> torch.Tensor:
     """The generate loop of ``make_generate_fn`` over any forward:
     ``forward_last(ids, positions, cache_offset, attn_mask)`` returns the
     logits [B, V] of each row's last position (and writes its cache).
-    Sampling runs on ``dev``, with one generator there."""
+    Sampling runs on ``dev``, with one generator there. ``on_logits(i,
+    logits)``, when given, sees the logits of step i before they are
+    sampled (a check's capture; it must not alter them).
+
+    While ``metrics.tracing()`` is on, the prefill and each decode step
+    record the spans ``decode.prefill`` (counts ``rows``, ``tokens``) and
+    ``decode.step`` (``rows``, ``step``: step i samples token i, then
+    runs its forward, except the last), with CUDA event pairs on a
+    card."""
     ids = _long(prompt_ids, dev)
     plen = _long(prompt_len, dev)
     eos = _long(eos_ids, dev).reshape(-1)
@@ -680,27 +877,87 @@ def decode_loop(forward_last, dev: torch.device, prompt_ids, prompt_len,
     # token and is causal; left-pad query rows mask every key (and
     # softmax to uniform, not NaN: every score is NEG_INF + s).
     causal = key_slot <= slot[:, :, None]
-    mask = torch.where(valid_key & causal & real[:, :, None], 0.0, NEG_INF)
-    cur = forward_last(ids, positions.clamp_min(0), 0, mask)
-    del mask
+    with _device_span("decode.prefill", dev, rows=B, tokens=B * P):
+        mask = torch.where(valid_key & causal & real[:, :, None], 0.0,
+                           NEG_INF)
+        cur = forward_last(ids, positions.clamp_min(0), 0, mask)
+        del mask
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     toks = []
     for i in range(max_new):
-        tok = _sample(cur, gen, temperature, top_p)
-        tok = torch.where(done, pad_tok, tok)
-        toks.append(tok)
-        if i == max_new - 1:
-            break
-        done = done | (tok[:, None] == eos[None, :]).any(dim=1)
-        write_slot = P + i
-        step_mask = torch.where(
-            valid_key & (key_slot <= write_slot), 0.0, NEG_INF)
-        cur = forward_last(tok[:, None], (write_slot - pad_offset)[:, None],
-                           write_slot, step_mask)
+        with _device_span("decode.step", dev, rows=B, step=i):
+            if on_logits is not None:
+                on_logits(i, cur)
+            tok = _sample(cur, gen, temperature, top_p)
+            tok = torch.where(done, pad_tok, tok)
+            toks.append(tok)
+            if i == max_new - 1:
+                break
+            done = done | (tok[:, None] == eos[None, :]).any(dim=1)
+            write_slot = P + i
+            step_mask = torch.where(
+                valid_key & (key_slot <= write_slot), 0.0, NEG_INF)
+            cur = forward_last(tok[:, None],
+                               (write_slot - pad_offset)[:, None],
+                               write_slot, step_mask)
     return torch.stack(toks, dim=1)                          # [B, max_new]
+
+
+class _DecodeStep:
+    """An MLA decode step's forward (one position a row) over static
+    buffers: the ids, positions, mask and the write slot (a device
+    tensor) are copied in, and the step attends over all S slots. On a
+    card it is captured as a CUDA graph at the first call and replayed
+    after, so that its ~2,000 kernels launch as one and the card, not
+    the host, paces decode; on the CPU it runs eagerly.
+
+    The capture follows a warm-up forward (cuBLAS handles, workspaces) on
+    a side stream; both write the cache's last slot, S - 1, which no step
+    reads unmasked (``decode_loop`` writes slots below P + max_new - 1).
+    Under ``metrics.tracing()`` the spans inside the step are recorded at
+    the capture alone, and its device tallies are added at every replay
+    of a graph captured while tracing was on."""
+
+    def __init__(self, params: Params, config: DecoderConfig,
+                 cache: torch.Tensor, batch: int):
+        dev = cache.device
+        S = cache.shape[2]
+        self.ids = torch.zeros((batch, 1), dtype=torch.long, device=dev)
+        self.pos = torch.zeros_like(self.ids)
+        self.slot = torch.full((1,), S - 1, dtype=torch.long, device=dev)
+        self.mask = torch.full((batch, 1, S), NEG_INF, device=dev)
+
+        def run():
+            logits, _ = forward(params, self.ids, self.pos, cache,
+                                self.slot, config, attn_mask=self.mask,
+                                last_only=True)
+            return logits[:, -1, :]
+
+        self.graph = None
+        if dev.type != "cuda":
+            self._run = run
+            return
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            run()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = run()
+
+    def __call__(self, ids, positions, offset: int, mask) -> torch.Tensor:
+        self.ids.copy_(ids)
+        self.pos.copy_(positions)
+        self.slot.fill_(offset)
+        self.mask.copy_(mask)
+        if self.graph is None:
+            return self._run()
+        self.graph.replay()
+        return self.out
 
 
 def make_generate_fn(config: DecoderConfig, max_seq: int, max_new: int):
@@ -715,24 +972,38 @@ def make_generate_fn(config: DecoderConfig, max_seq: int, max_new: int):
     slot P+i while RoPE positions stay per-row (slot − pad_offset). The
     loop runs the static ``max_new`` horizon with per-row done flags on
     the device and reads nothing back before it ends; the last step's
-    forward is skipped, as its logits are never sampled.
+    forward is skipped, as its logits are never sampled. The prefill's
+    head runs on the last slot alone (``forward(last_only=True)``).
+    ``on_logits`` is ``decode_loop``'s. With MLA the decode steps run
+    through ``_DecodeStep``: one CUDA graph a call on a card.
     """
 
     def generate(params, prompt_ids, prompt_len, seed, temperature, top_p,
-                 eos_ids):
+                 eos_ids, on_logits=None):
         dev = params["final_norm"].device
-        cache = None
+        cache = step = None
 
         def forward_last(ids, positions, offset, mask):
-            nonlocal cache
+            nonlocal cache, step
             if cache is None:
                 cache = empty_cache(config, ids.shape[0], max_seq,
                                     device=dev)
+            if config.mla is not None and ids.shape[1] == 1:
+                if step is None:
+                    step = _DecodeStep(params, config, cache, ids.shape[0])
+                return step(ids, positions, offset, mask)
             logits, cache = forward(params, ids, positions, cache, offset,
-                                    config, attn_mask=mask)
+                                    config, attn_mask=mask, last_only=True)
             return logits[:, -1, :]      # all rows end at the last slot
 
         return decode_loop(forward_last, dev, prompt_ids, prompt_len, seed,
-                           temperature, top_p, eos_ids, max_seq, max_new)
+                           temperature, top_p, eos_ids, max_seq, max_new,
+                           on_logits=on_logits)
 
     return generate
+
+
+# The MLA and MoE blocks use this module's products and norms; imported
+# last, so that either side may be imported first.
+from classmate_rag_tpu_torch.models import mla as _mla  # noqa: E402
+from classmate_rag_tpu_torch.models import moe as _moe  # noqa: E402

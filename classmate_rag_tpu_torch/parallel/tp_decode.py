@@ -213,10 +213,12 @@ def empty_tp_cache(config: DecoderConfig, mesh: DeviceMesh, batch: int,
 def tp_forward(rank_shards: RankShards, input_ids: torch.Tensor,
                positions: torch.Tensor, caches, cache_offset: int,
                config: DecoderConfig, mesh: DeviceMesh,
-               attn_mask: torch.Tensor) -> torch.Tensor:
+               attn_mask: torch.Tensor,
+               last_only: bool = False) -> torch.Tensor:
     """``decoder.forward`` over the mesh: logits [B, T, V] f32 on the
-    mesh's first device; each rank's cache (``empty_tp_cache``) written
-    in place at slots [cache_offset, cache_offset + T)."""
+    mesh's first device ([B, 1, V] with ``last_only``); each rank's cache
+    (``empty_tp_cache``) written in place at slots [cache_offset,
+    cache_offset + T)."""
     dp, tp = mesh.shape["data"], mesh.shape["model"]
     rcfg = rank_config(config, tp)
     offset = int(cache_offset)
@@ -239,6 +241,8 @@ def tp_forward(rank_shards: RankShards, input_ids: torch.Tensor,
                 for m, (dev, (c, s, mk)) in enumerate(zip(devs, local))])
             x = x + reduce_sum([D._mlp(lps[m], x.to(dev), rcfg)
                                 for m, dev in enumerate(devs)])
+        if last_only:
+            x = x[:, -1:]
         x = D._rms_norm(x, trees[0]["final_norm"],
                         config.norm_eps).to(config.compute_dtype)
         rows.append(gather([D._mm(x.to(dev), t["lm_head"],
@@ -255,7 +259,7 @@ def make_tp_generate_fn(config: DecoderConfig, mesh: DeviceMesh,
     check_tp_divisibility(config, mesh)
 
     def generate(rank_shards, prompt_ids, prompt_len, seed, temperature,
-                 top_p, eos_ids):
+                 top_p, eos_ids, on_logits=None):
         caches = None
 
         def forward_last(ids, positions, offset, mask):
@@ -264,10 +268,10 @@ def make_tp_generate_fn(config: DecoderConfig, mesh: DeviceMesh,
                 split_rows(ids.shape[0], mesh.shape["data"])
                 caches = empty_tp_cache(config, mesh, ids.shape[0], max_seq)
             return tp_forward(rank_shards, ids, positions, caches, offset,
-                              config, mesh, mask)[:, -1, :]
+                              config, mesh, mask, last_only=True)[:, -1, :]
 
         return D.decode_loop(forward_last, mesh[0][0], prompt_ids,
                              prompt_len, seed, temperature, top_p, eos_ids,
-                             max_seq, max_new)
+                             max_seq, max_new, on_logits=on_logits)
 
     return generate

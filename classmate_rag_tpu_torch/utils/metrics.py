@@ -11,6 +11,9 @@ step, and ``tracing()`` turns recording on for a block and yields the
 list of closed spans (``Span``), read after the block. With tracing off
 a span is one attribute test and a shared no-op context: no record, no
 allocation of its own, no lock. Span times are ``time.perf_counter_ns``.
+``tracing(tallies=d)`` also keeps device-side counters for the block:
+``tally(name, shape, device)`` gives the program the block's int64
+tensor ``d[name]`` to add into (None while off), read after the block.
 """
 
 from __future__ import annotations
@@ -82,6 +85,7 @@ class Metrics:
         # Tracing: the list closed spans go to while ``tracing()`` is on
         # (None while off), span ids, each thread's open spans.
         self._spans: Optional[List[Span]] = None
+        self._tallies: Optional[Dict[str, Any]] = None
         self._span_ids = itertools.count(1)
         self._open = threading.local()
 
@@ -120,18 +124,38 @@ class Metrics:
             stack = self._open.stack = []
         return stack
 
+    def tally(self, name: str, shape, device):
+        """While a ``tracing(tallies=d)`` block is on, ``d[name]``: a
+        zeroed int64 tensor of ``shape`` on ``device`` at its first use,
+        which the caller adds its counts into on the device (no read
+        back); None otherwise."""
+        tallies = self._tallies
+        if tallies is None:
+            return None
+        t = tallies.get(name)
+        if t is None:
+            import torch
+
+            t = tallies[name] = torch.zeros(shape, dtype=torch.int64,
+                                            device=device)
+        return t
+
     @contextmanager
-    def tracing(self) -> Iterator[List[Span]]:
+    def tracing(self, tallies: Optional[Dict[str, Any]] = None
+                ) -> Iterator[List[Span]]:
         """Record spans for the block; yields the list they close into.
-        Not reentrant: one recording at a time."""
+        With ``tallies`` (a dict), device counters (``tally``) go into it
+        too. Not reentrant: one recording at a time."""
         if self._spans is not None:
             raise RuntimeError("tracing is already on")
         spans: List[Span] = []
         self._spans = spans
+        self._tallies = tallies
         try:
             yield spans
         finally:
             self._spans = None
+            self._tallies = None
 
     def snapshot(self) -> Dict[str, object]:
         with self._lock:

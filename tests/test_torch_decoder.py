@@ -61,6 +61,11 @@ def _configs(family, **extra):
 def _fields(cfg):
     d = dataclasses.asdict(cfg)
     d.pop("compute_dtype")
+    # The port's DeepSeek-V2 fields (latent attention, sparse experts),
+    # which the JAX package's config lacks: unset in the dense families.
+    for key in ("mla", "moe"):
+        if key in d:
+            assert d.pop(key) is None, key
     return d
 
 
@@ -370,3 +375,33 @@ def test_forward_guards():
     with pytest.raises(ValueError, match="exceed"):
         T.make_generate_fn(tc, 8, 6)(tp, np.ones((1, 4)), [4], 0, 0.0,
                                      0.9, 2)
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_last_only_head_equals_the_last_slice(family):
+    """The prefill's head on the last position alone (``last_only``, what
+    ``make_generate_fn`` runs) gives the logits of the full [B, T, V]
+    forward's last position, and the same cache. The head's rows are the
+    same dot products; only the product's row count differs, so the f32
+    sums may differ in the last bit (ATOL)."""
+    _jc, tc, tree, _ = _trees(family)
+    tp = T.params_from_numpy(tree, tc, "cpu")
+    S = 24
+    ids, lens = _prompts(seed=5, B=3, P=10, lens=(10, 6, 1))
+    pad = 10 - lens
+    slot = np.arange(10)[None, :]
+    pos = np.maximum(slot - pad[:, None], 0)
+    key = np.arange(S)[None, None, :]
+    ok = (key >= pad[:, None, None]) & (key <= slot[:, :, None])
+    mask = torch.as_tensor(np.where(ok, 0.0, NEG).astype(np.float32))
+    args = (torch.as_tensor(ids, dtype=torch.long),
+            torch.as_tensor(pos, dtype=torch.long))
+    full, c1 = T.forward(tp, *args, T.empty_cache(tc, 3, S, device="cpu"),
+                         0, tc, attn_mask=mask)
+    last, c2 = T.forward(tp, *args, T.empty_cache(tc, 3, S, device="cpu"),
+                         0, tc, attn_mask=mask, last_only=True)
+    assert last.shape == (3, 1, tc.vocab_size)
+    np.testing.assert_allclose(last[:, 0].numpy(), full[:, -1].numpy(),
+                               rtol=0, atol=ATOL)
+    for a, b in zip(c1, c2):
+        assert torch.equal(a, b)
