@@ -20,6 +20,7 @@ six-stage multi-device dryrun).
     python3 chip_smoke.py --product-child DIR   # phase 8's child alone
     python3 chip_smoke.py --decode-child        # phase 9's child alone
     python3 chip_smoke.py --row-select-child    # phase 2's row_select part
+    python3 chip_smoke.py --bm25-core-child     # phase 2's bm25_sat_gemm part
     python3 chip_smoke.py --multihost-child RANK DIR ADDR   # a phase 14 rank
     python3 chip_smoke.py --tools-child cold|serve DIR      # a phase 17 child
 
@@ -40,7 +41,11 @@ Phases, one JSON line each; any failure exits non-zero with no result:
               'row_select'): BM25's selection bit-equal to the stable
               sort it replaces on BM25-shaped [256, 1,048,576] and
               [256, 262,144] scores at k 8, 64 and 128 and at its edges,
-              with the share of entries its filter let through;
+              with the share of entries its filter let through; then its
+              bm25_sat_gemm part, in a child (--bm25-core-child; line part
+              'bm25_core'): the approx route's BM25 core at the 1M cell's
+              shapes (BM25_SHAPE) against its plain version and its bound,
+              with the tail posting list's and the whole core's times;
 3. slice      4 batches of 256 queries through IndexStore.hybrid_topk_batch
               (launch counts reset just before, read just after), all 4
               held against the same packed step on CPU copies of their
@@ -322,6 +327,14 @@ PACKED_TOL = 1e-6      # packed vs unpacked step on the card (the same ops
                        # on the same values)
 BOUND_FLOOR = 0.95     # a kernel's device time may not fall under this x bound
 KERNEL_TOL = 1e-5      # kernel vs plain scores (f32 sums of bf16 products)
+BM25_TOL = 4e-5        # bm25_sat_gemm vs plain, over the row's |w| @ sat
+# The 1M cell's BM25 core as a hybrid-b256 batch of msmarco-1m makes it
+# (the median of its 64 pool batches): queries, rows, live and padded head
+# slots and tail terms, live tail segments and their postings, the
+# segment cap.
+BM25_SHAPE = {"b": 256, "n": 1 << 20, "h_live": 459, "h": 512,
+              "t_live": 478, "t": 512, "u_live": 602, "postings": 142_106,
+              "r_cap": 512}
 LN_TOL = 1e-5          # residual_ln kernel vs plain (f32, other sum order)
 ATTN_TOL = 1e-2        # flash_attn vs plain for |v| <= 1 (bf16 weights)
 ENC_COS_MIN = 0.9999   # encoder rows: slice vs default config, card vs CPU
@@ -338,6 +351,9 @@ BACKWARD_KERNELS = ("flash_attn_bwd_delta", "flash_attn_bwd")  # training
 # Launched only where a batch's rows do not fill the card (fewer than
 # its SMs): row_select then cuts each row into slices and merges them.
 SPLIT_ONLY_KERNELS = ("row_select_merge",)
+# Launched only on the approx route (stores of 500,000 rows or more): the
+# smaller stores of the ingest+ask and routed phases never launch it.
+APPROX_ONLY_KERNELS = ("bm25_sat_gemm",)
 
 
 
@@ -830,11 +846,201 @@ def row_select_phase() -> list:
     return rows
 
 
+def bm25_tail_windows(rng, n, t_live, u_live, postings, r_cap):
+    """Term-sorted tail postings over ``n`` rows: ``t_live`` terms in
+    ``u_live`` windows of at most ``r_cap`` entries, ``postings`` entries
+    in all (each window at least one; tf 1 + Poisson(0.05), a rare word's
+    count in a passage), and the window table padded as
+    ``split_query_arrays`` pads it. Returns numpy arrays (post_rows,
+    post_tfs, u_starts, u_lens, u_cols, t_tids) padded to powers of two."""
+    lens = np.ones(u_live, np.int64)
+    extra = max(postings - u_live, 0)
+    lens += rng.multinomial(extra, np.full(u_live, 1.0 / u_live))
+    lens = np.minimum(lens, r_cap)
+    owner = np.sort(np.concatenate([np.arange(t_live),
+                                    rng.integers(0, t_live,
+                                                 u_live - t_live)]))
+    rows_all, starts, pos = [], [], 0
+    for j in range(t_live):
+        segs = np.flatnonzero(owner == j)
+        m = int(lens[segs].sum())
+        rows_all.append(np.sort(rng.choice(n, size=m, replace=False)))
+        for s in segs:
+            starts.append(pos)
+            pos += int(lens[s])
+    size = pos + r_cap + 64
+    post_rows = np.zeros(size, np.int32)
+    post_rows[:pos] = np.concatenate(rows_all)
+    post_tfs = np.zeros(size, np.uint8)
+    post_tfs[:pos] = 1 + rng.poisson(0.05, size=pos)
+    pad = lambda k: max(8, 1 << int(np.ceil(np.log2(max(k, 1)))))
+    u = pad(u_live)
+    u_starts = np.zeros(u, np.int32)
+    u_starts[:u_live] = starts
+    u_lens = np.zeros(u, np.int32)
+    u_lens[:u_live] = lens
+    u_cols = np.full(u, -1, np.int32)
+    u_cols[:u_live] = owner
+    t_tids = np.full(pad(t_live), -1, np.int32)
+    t_tids[:t_live] = np.arange(t_live)
+    return post_rows, post_tfs, u_starts, u_lens, u_cols, t_tids
+
+
+def bm25_head_rows(rng, g, h_live, n, words=56, vocab=200_000, head=3584):
+    """A head matrix [h_live, n] u8 shaped like the 1M cell's: slot k holds
+    a word of Zipf rank r_k (the distinct head ranks, <= ``head``, that
+    Zipf draws of query words reach first), in a row with probability
+    1 - exp(-lam_k), lam_k = words / (H_vocab r_k), H_vocab the harmonic
+    number of ``vocab``; its tf there 1 + Poisson(lam_k / 2)."""
+    h_vocab = float(np.sum(1.0 / np.arange(1, vocab + 1)))
+    ranks = []
+    while len(ranks) < h_live:
+        for r in rng.zipf(1.0001, size=4 * h_live):
+            if r <= head and r not in ranks:
+                ranks.append(int(r))
+                if len(ranks) == h_live:
+                    break
+    lam = torch.tensor(words / (h_vocab * np.asarray(ranks, np.float64)),
+                       dtype=torch.float32, device="cuda")
+    rows = torch.empty((h_live, n), dtype=torch.uint8, device="cuda")
+    for i in range(0, h_live, 64):
+        lk = lam[i:i + 64, None].expand(-1, n)
+        live = torch.rand(lk.shape, device="cuda", generator=g) < (
+            1.0 - torch.exp(-lk))
+        tf = 1.0 + torch.poisson(lk / 2.0, generator=g)
+        rows[i:i + 64] = torch.where(live, tf.clamp(max=255), 0).to(
+            torch.uint8)
+    return rows
+
+
+def bm25_core_rows(peaks):
+    """bm25_sat_gemm at the 1M cell's shapes (BM25_SHAPE): a head matrix
+    from ``bm25_head_rows`` (Zipf words at its densities and tf), the
+    tail's windows, row lengths 12-100, every row kept, random weights.
+    Checks the kernel against its plain version
+    (``bm25_core.sat_gemm_reference``, within BM25_TOL of |w| @ sat) and
+    times it beside its bound (the live head slots' u8 rows and the tail's
+    postings read once, the rows' length terms and keep flags, the f32
+    scores written once; 2 B FLOP a head tf byte and a posting), the plain
+    version and ``library_ms``, a bf16 ``torch.matmul`` of the head's
+    ready operands (the yardstick only: the port never calls it); its
+    device time from held-stream CUDA events. Also times the tail's
+    posting list (``bm25_core.tail_postings``) and the whole core from the
+    step's arrays (``bm25_core.fast_scores``'s weights, postings and
+    product). Returns the kernel row and the extras."""
+    from classmate_rag_tpu_torch.ops import bm25_core
+
+    sh = BM25_SHAPE
+    b, n, r_cap = sh["b"], sh["n"], sh["r_cap"]
+    h_live, h, t_live, t = sh["h_live"], sh["h"], sh["t_live"], sh["t"]
+    rng = np.random.default_rng(24)
+    g = torch.Generator(device="cuda").manual_seed(24)
+    tf_head = torch.zeros((h + 8, n), dtype=torch.uint8, device="cuda")
+    perm = rng.permutation(h + 8)[:h_live]
+    tf_head[torch.from_numpy(perm).to("cuda")] = bm25_head_rows(
+        rng, g, h_live, n)
+    h_slots = np.full(h, -1, np.int32)
+    h_slots[:h_live] = perm
+    up = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to("cuda")
+    post_rows, post_tfs, u_starts, u_lens, u_cols, t_tids = map(
+        up, bm25_tail_windows(rng, n, t_live, sh["u_live"], sh["postings"],
+                              r_cap))
+    h_slots = up(h_slots)
+    doc_len = up(rng.integers(12, 101, size=n).astype(np.float32))
+    keep = torch.ones(n, dtype=torch.bool, device="cuda")
+    avgdl = doc_len.mean().reshape(())
+    w = torch.rand(b, h + t, device="cuda", generator=g) * 8.0
+    w[:, h_live:h] = 0.0
+    w[:, h + t_live:] = 0.0
+    w = w.to(torch.bfloat16)
+    win = (post_rows, post_tfs, u_starts, u_lens, u_cols)
+    tail = bm25_core.tail_postings(*win, n, r_cap)
+    args = (tf_head, h_slots, tail, doc_len, keep, avgdl, w)
+    got = bm25_core.sat_gemm(*args)
+    want = bm25_core.sat_gemm_reference(*args)
+    rows = torch.cat((
+        tf_head[h_slots.clamp(min=0).long()] * (h_slots >= 0)[:, None],
+        bm25_core.tail_matrix(tail, t, n)), 0)
+    sat = bm25_core.sat_operand(rows, doc_len, keep, avgdl)
+    del rows
+    scale = w.float().abs() @ sat.float()
+    err = float(((got - want).abs() / (scale + 1e-6)).max())
+    check(err <= BM25_TOL, f"bm25_sat_gemm: {err} of |w| @ sat from plain")
+    del got, want, scale
+    torch.cuda.empty_cache()
+    live = int(tail.off[-1])
+    check(live == int(u_lens.sum()), f"bm25_sat_gemm: {live} live tail "
+          f"postings, {int(u_lens.sum())} made")
+    sat_head = sat[:h].contiguous()
+    row = kernel_row(
+        "bm25_sat_gemm", "bm25_sat_gemm.cu",
+        "none (XLA's bf16 einsum, classmate_rag_tpu/index/lexical.py "
+        "bm25_split_score_core)",
+        {"B": b, "N": n, "H": h, "H_live": h_live, "T": t, "T_live": t_live,
+         "tail_postings": live}, err,
+        lambda: bm25_core.sat_gemm(*args), bm25_core.LAUNCHES,
+        time_ms(lambda: bm25_core.sat_gemm_reference(*args), reps=3,
+                warmup=1),
+        lambda: torch.matmul(w[:, :h], sat_head),
+        h_live * n + live * 12 + (n // 128 + 1) * 4 + n * 5 + b * n * 4,
+        2 * b * (h_live * n + live), peaks[0], peaks[1], held=True)
+    # Vocabulary ids: head terms 0 .. h_live - 1, tail terms h + j.
+    ids = np.concatenate([np.arange(h_live), h + np.arange(t_live)])
+    q_tids = up(rng.choice(ids, size=(b, 8)).astype(np.int32))
+    q_counts = torch.ones(b, 8, device="cuda")
+    idf = torch.rand(h + t + 1, device="cuda", generator=g) + 0.5
+    h_tids = up(np.where(np.arange(h) < h_live, np.arange(h), -1)
+                .astype(np.int32))
+    t_ids = torch.where(t_tids >= 0, t_tids + h, -1).int()
+    core = lambda: bm25_core.fast_scores(
+        tf_head, post_rows, post_tfs, doc_len, keep, idf, avgdl, h_slots,
+        h_tids, u_starts, u_lens, u_cols, t_ids, q_tids, q_counts,
+        vocab_pad=h + t, r_cap=r_cap)
+    extras = {
+        "tail_postings_ms": time_ms(
+            lambda: bm25_core.tail_postings(*win, n, r_cap)),
+        "tail_postings_queued_ms": queued_ms(
+            lambda: bm25_core.tail_postings(*win, n, r_cap)),
+        "fast_scores_ms": time_ms(core),
+        "fast_scores_queued_ms": queued_ms(core),
+        "operand_nonzero_share": float((sat != 0).float().mean()),
+        "shape": sh,
+    }
+    return row, extras
+
+
+def bm25_core_child() -> int:
+    """Phase 2's bm25_sat_gemm part in its own young process: one
+    'kernels' line, part 'bm25_core'."""
+    row, extras = bm25_core_rows(peaks_for(torch.cuda.get_device_name(0))[1])
+    emit({"phase": "kernels", "part": "bm25_core", "kernels": [row],
+          **extras, "nvidia_smi": smi_line()})
+    return 0
+
+
+def bm25_core_phase() -> dict:
+    """Run the bm25_sat_gemm child and relay its line; returns its row."""
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--bm25-core-child"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    for line in lines:
+        emit(line)
+    check(proc.returncode == 0,
+          f"bm25_core child failed (rc={proc.returncode}):\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    rows = [r for ln in lines if ln.get("part") == "bm25_core"
+            for r in ln["kernels"]]
+    check(len(rows) == 1, "bm25_core child: its kernel row is missing")
+    return rows[0]
+
+
 # The port's kernels by the names the profiler gives them.
 PORT_KERNELS = ("topk_scan_kernel", "topk_merge_kernel", "bias_gelu_kernel",
                 "residual_ln_kernel", "flash_attn_kernel",
                 "flash_attn_bwd_kernel", "flash_attn_bwd_delta_kernel",
-                "row_select_kernel", "row_select_merge_kernel")
+                "row_select_kernel", "row_select_merge_kernel",
+                "bm25_sat_gemm_kernel")
 TRACES = 4          # profiler sessions tried for one whole trace
 TRACE_AGREE = 0.05  # two whole traces' device times agree within this
 
@@ -1339,7 +1545,7 @@ def encoder_phase(rng, docs, counts, peaks, profile_path):
     want = {"bias_gelu": n_layers * n_fwd, "residual_ln": 2 * n_layers * n_fwd,
             "flash_attn": n_layers * n_flash, "topk_scan": 0,
             "topk_merge": 0, "row_select": 0, "row_select_merge": 0,
-            **{k: 0 for k in BACKWARD_KERNELS}}
+            "bm25_sat_gemm": 0, **{k: 0 for k in BACKWARD_KERNELS}}
     check(launches == want, f"encoder launches {launches} != {want}")
     check(n_flash > 0 and n_flash < n_fwd, "expected flash and non-flash "
           f"buckets, got {sorted(set(t for _b, t in shapes))}")
@@ -1475,7 +1681,7 @@ def ingest_ask_phase(enc, docs, rng, counts, knobs):
         t_first = time.perf_counter() - t0
         launches = counts.read()
         for name, n in launches.items():
-            if name in BACKWARD_KERNELS:   # training only
+            if name in BACKWARD_KERNELS + APPROX_ONLY_KERNELS:
                 check(n == 0, f"ingest+ask: {name} was launched")
             elif name not in SPLIT_ONLY_KERNELS:
                 check(n > 0, f"ingest+ask: {name} was not launched")
@@ -4318,7 +4524,7 @@ def routed_phase(tree, ckpt_dir: Path, docs, counts) -> dict:
         check(launches["topk_scan"] == launches["topk_merge"] == n_asks,
               f"routed: {launches} for {n_asks} asks")
         for name, n in launches.items():
-            if name in BACKWARD_KERNELS:
+            if name in BACKWARD_KERNELS + APPROX_ONLY_KERNELS:
                 check(n == 0, f"routed: {name} was launched")
             elif name not in SPLIT_ONLY_KERNELS:
                 check(n > 0, f"routed: {name} was not launched")
@@ -4849,8 +5055,8 @@ def bench_phase(counts) -> dict:
     """The port's benchmark at 1,000,000 chunks on the card, held to
     bench.py's bars: the approx route chosen by size, recall@8 against
     the oracle unfiltered and in every filter case, 1 + 1 scan launches
-    and 1 row_select a timed batch, and a wall QPS the card's own time can
-    account for."""
+    and 1 row_select and 1 bm25_sat_gemm a timed batch, and a wall QPS the
+    card's own time can account for."""
     import os
 
     from classmate_rag_tpu_torch import bench
@@ -4880,7 +5086,7 @@ def bench_phase(counts) -> dict:
     per_batch = {k: v / detail["timed_batches"]
                  for k, v in detail["timed_launches"].items()}
     check(per_batch["topk_scan"] == per_batch["topk_merge"]
-          == per_batch["row_select"] == 1.0,
+          == per_batch["row_select"] == per_batch["bm25_sat_gemm"] == 1.0,
           f"bench: launches a timed batch {per_batch}")
     check(out["value"] <= WALL_OVER_CEILING * out["device_ceiling_qps"],
           f"bench: wall {out['value']} QPS over the device ceiling "
@@ -4927,6 +5133,8 @@ def main() -> int:
                     help="run only the decode phase's child")
     ap.add_argument("--row-select-child", action="store_true",
                     help="run only phase 2's row_select part (a child)")
+    ap.add_argument("--bm25-core-child", action="store_true",
+                    help="run only phase 2's bm25_sat_gemm part (a child)")
     ap.add_argument("--tools-child", nargs=2, metavar=("PART", "DIR"),
                     help="run one of phase 17's children (PART 'cold' or "
                          "'serve') against the product index in DIR")
@@ -4946,6 +5154,8 @@ def main() -> int:
         return decode_child()
     if args.row_select_child:
         return row_select_child()
+    if args.bm25_core_child:
+        return bm25_core_child()
     if args.tools_child:
         part, root = args.tools_child
         return tools_child(part, Path(root))
@@ -4959,6 +5169,7 @@ def main() -> int:
     from classmate_rag_tpu_torch.index.store import IndexStore
     from classmate_rag_tpu_torch.ops import _build
     from classmate_rag_tpu_torch.ops import attention as tatt
+    from classmate_rag_tpu_torch.ops import bm25_core
     from classmate_rag_tpu_torch.ops import encoder_fused as tef
     from classmate_rag_tpu_torch.ops import topk as ttopk
     from classmate_rag_tpu_torch.retrieval.hybrid import HybridRetriever
@@ -5023,7 +5234,7 @@ def main() -> int:
     emit({"phase": "kernels",
           "kernels": [kern, kern_1m, merge, gelu, ln, *flash_rows]})
     bwd_rows = train_kernels(tatt, peaks)
-    counts = Counts(ttopk, tef, tatt)
+    counts = Counts(ttopk, tef, tatt, bm25_core)
 
     # ---- 3. slice: the main path -----------------------------------------
     counts.reset()
@@ -5044,6 +5255,8 @@ def main() -> int:
     for name in ("topk_scan", "topk_merge", "row_select"):
         check(launches[name] == len(batches),
               f"{name} launches {launches[name]} != {len(batches)}")
+    check(launches["bm25_sat_gemm"] == 0,
+          "slice: the exact route launched bm25_sat_gemm")
 
     # One warm batch's host-to-device copies: the packed metadata and
     # the query vectors.
@@ -5247,15 +5460,18 @@ def main() -> int:
     del enc_tree, docs, emb
 
     # ---- 16. bench ---------------------------------------------------------
-    bench_phase(counts)
-    # Phase 2's row_select part, last, so that no phase runs later in the
-    # process's life for it (an older process's traces drop more).
+    bench = bench_phase(counts)
+    # Phase 2's row_select and bm25_sat_gemm parts, last, so that no phase
+    # runs later in the process's life for them (an older process's
+    # traces drop more).
     select_rows = row_select_phase()
+    bm25_row = bm25_core_phase()
 
     line = []
     for row, n in ((kern, launches["topk_scan"]),
                    (merge, launches["topk_merge"]),
                    *((row, launches["row_select"]) for row in select_rows),
+                   (bm25_row, bench["launches"]["bm25_sat_gemm"]),
                    (gelu, enc_launches["bias_gelu"]),
                    (ln, enc_launches["residual_ln"]),
                    (flash, enc_launches["flash_attn"]),

@@ -378,9 +378,9 @@ def _bench_meta(i: int) -> dict:
 
 
 def _launches() -> dict:
-    from classmate_rag_tpu_torch.ops.topk import LAUNCHES
+    from classmate_rag_tpu_torch.ops import bm25_core, topk
 
-    return dict(LAUNCHES)
+    return {**topk.LAUNCHES, **bm25_core.LAUNCHES}
 
 
 def run_scale(n_chunks: int, n_oracle: int, *,

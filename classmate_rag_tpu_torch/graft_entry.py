@@ -461,9 +461,14 @@ def stage_dp_encode(devices: Sequence[torch.device]):
 
 
 def _launch_counts() -> Dict[str, int]:
-    from classmate_rag_tpu_torch.ops import attention, encoder_fused, topk
+    from classmate_rag_tpu_torch.ops import (
+        attention,
+        bm25_core,
+        encoder_fused,
+        topk,
+    )
 
-    return {k: v for m in (topk, encoder_fused, attention)
+    return {k: v for m in (topk, encoder_fused, attention, bm25_core)
             for k, v in m.LAUNCHES.items()}
 
 

@@ -603,11 +603,17 @@ def okapi_query_weights(idf, q_terms, q_counts, vocab_pad: int):
     return w
 
 
+def okapi_len_term(doc_len, avgdl):
+    """The length part of the saturation's denominator,
+    k1 · ((1 - b) + b · dl / avgdl), per row."""
+    return K1 * (1.0 - B + B * doc_len / avgdl)
+
+
 def okapi_sat(tf, doc_len, avgdl):
     """BM25 term-frequency saturation; ``tf`` broadcastable against
     ``doc_len`` (caller shapes them)."""
     tf = tf.float()
-    return tf * (K1 + 1.0) / (tf + K1 * (1.0 - B + B * doc_len / avgdl))
+    return tf * (K1 + 1.0) / (tf + okapi_len_term(doc_len, avgdl))
 
 
 def okapi_score_rows(term_ids, tfs, doc_len, avgdl, w, vocab_pad: int):
@@ -664,6 +670,52 @@ def _f32_matmul(a: torch.Tensor, b: torch.Tensor, fast: bool):
     return a @ b
 
 
+def split_query_weights(idf, h_tids, t_tids, q_tids, q_counts,
+                        vocab_pad: int):
+    """(w_head [B, H], w_tail [B, T]) f32: each query's idf × multiplicity
+    at the batch's head terms ``h_tids`` and tail terms ``t_tids`` (-1
+    padding weighs 0)."""
+    q_valid = (q_tids >= 0)[:, :, None]
+    out = []
+    for tids in (h_tids, t_tids):
+        t_idf = idf[torch.where(tids >= 0, tids, vocab_pad).long()]
+        match = (
+            (q_tids[:, :, None] == tids[None, None, :])
+            & q_valid & (tids >= 0)[None, None, :]
+        )
+        out.append(torch.einsum(
+            "bmt,bm->bt", match.float(), q_counts
+        ) * t_idf[None, :])
+    return tuple(out)
+
+
+def tail_tf_matrix(post_rows, post_tfs, u_starts, u_lens, u_cols, t: int,
+                   n: int, r_cap: int):
+    """[N, T] f32: the tf of the batch's tail terms over the rows, from
+    their posting windows (segment u covers postings clamp(u_starts[u],
+    0, P - r_cap) + [0, u_lens[u]) and adds into column u_cols[u])."""
+    dev = post_rows.device
+    p = post_rows.shape[0]
+    starts = torch.clamp(u_starts.long(), 0, max(p - r_cap, 0))
+    r_iota = torch.arange(r_cap, device=dev)
+    pos = starts[:, None] + r_iota[None, :]                 # [U, R]
+    rows_u = post_rows[pos].long()
+    tfs_u = post_tfs[pos].float()
+    valid_u = (u_lens[:, None] > 0) & (r_iota[None, :] < u_lens[:, None])
+    col_u = u_cols.long()[:, None].expand(-1, r_cap)
+    col_ok = valid_u & (col_u >= 0)
+    tf_tail = torch.zeros((n, t + 1), dtype=torch.float32, device=dev)
+    # Integer tfs: the accumulated sums are exact in any order. An add
+    # into the flat view, where dead slots land in column t: on CUDA,
+    # index_put_(accumulate=True) range-checks its indices with two host
+    # reads each, and every batch would wait for the card.
+    tf_tail.view(-1).index_add_(
+        0, torch.where(col_ok, rows_u * (t + 1) + col_u, t).reshape(-1),
+        torch.where(col_ok, tfs_u, 0.0).reshape(-1),
+    )
+    return tf_tail[:, :t]
+
+
 def bm25_split_score_core(
     tf_head,      # u8 [C, N] — dense tf of head terms, TERM-major
     post_rows,    # i32 [P] — tail postings: row ids (term-major)
@@ -694,59 +746,35 @@ def bm25_split_score_core(
     (only valid when the caller exactly rescores its candidate pool,
     see ops/hybrid_step.bm25_rescore_pool); otherwise every product is
     full f32.
+
+    On CUDA, ``fast`` runs the hand-written kernel instead
+    (``ops/bm25_core.fast_scores``: the same bf16 operands, f32 sums in
+    another order); this code is its CPU and reference path.
     """
-    dev = tf_head.device
+    if fast and tf_head.is_cuda:
+        from classmate_rag_tpu_torch.ops import bm25_core
+
+        return bm25_core.fast_scores(
+            tf_head, post_rows, post_tfs, doc_len, keep, idf, avgdl,
+            h_slots, h_tids, u_starts, u_lens, u_cols, t_tids, q_tids,
+            q_counts, vocab_pad=vocab_pad, r_cap=r_cap,
+        )
     n = tf_head.shape[1]
-    q_valid = (q_tids >= 0)[:, :, None]
+    w_head, w_tail = split_query_weights(idf, h_tids, t_tids, q_tids,
+                                         q_counts, vocab_pad)
 
     # ---- head: gather only the batch's head-term rows, then matmul.
     tf_sub = tf_head[torch.clamp(h_slots, min=0).long()]   # [H, N] u8
     sat_sub = okapi_sat(tf_sub, doc_len[None, :], avgdl)
     sat_sub = sat_sub * (tf_sub > 0) * keep[None, :]
     sat_sub = sat_sub * (h_slots >= 0)[:, None]
-
-    h_idf = idf[torch.where(h_tids >= 0, h_tids, vocab_pad).long()]
-    match_h = (
-        (q_tids[:, :, None] == h_tids[None, None, :])
-        & q_valid & (h_tids >= 0)[None, None, :]
-    )
-    w_head = torch.einsum(
-        "bmh,bm->bh", match_h.float(), q_counts
-    ) * h_idf[None, :]
     scores = _f32_matmul(w_head, sat_sub, fast)
 
     # ---- tail: batch-union tf matrix + second matmul.
-    p = post_rows.shape[0]
-    starts = torch.clamp(u_starts.long(), 0, max(p - r_cap, 0))
-    r_iota = torch.arange(r_cap, device=dev)
-    pos = starts[:, None] + r_iota[None, :]                 # [U, R]
-    rows_u = post_rows[pos].long()
-    tfs_u = post_tfs[pos].float()
-    valid_u = (u_lens[:, None] > 0) & (r_iota[None, :] < u_lens[:, None])
-    t = t_tids.shape[0]
-    col_u = u_cols.long()[:, None].expand(-1, r_cap)
-    col_ok = valid_u & (col_u >= 0)
-    tf_tail = torch.zeros((n, t + 1), dtype=torch.float32, device=dev)
-    # Integer tfs: the accumulated sums are exact in any order. An add
-    # into the flat view, where dead slots land in column t: on CUDA,
-    # index_put_(accumulate=True) range-checks its indices with two host
-    # reads each, and every batch would wait for the card.
-    tf_tail.view(-1).index_add_(
-        0, torch.where(col_ok, rows_u * (t + 1) + col_u, t).reshape(-1),
-        torch.where(col_ok, tfs_u, 0.0).reshape(-1),
-    )
-    tf_tail = tf_tail[:, :t]
+    tf_tail = tail_tf_matrix(post_rows, post_tfs, u_starts, u_lens, u_cols,
+                             t_tids.shape[0], n, r_cap)
     sat_tail = okapi_sat(tf_tail, doc_len[:, None], avgdl)
     sat_tail = sat_tail * (tf_tail > 0) * keep[:, None]
-
-    t_idf = idf[torch.where(t_tids >= 0, t_tids, vocab_pad).long()]
-    match_t = (
-        (q_tids[:, :, None] == t_tids[None, None, :])
-        & q_valid & (t_tids >= 0)[None, None, :]
-    )
-    w_tail = torch.einsum(
-        "bmt,bm->bt", match_t.float(), q_counts
-    ) * t_idf[None, :]
     scores = scores + _f32_matmul(w_tail, sat_tail.T, fast)
     return scores * keep[None, :]
 

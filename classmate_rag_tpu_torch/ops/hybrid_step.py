@@ -289,18 +289,23 @@ def hybrid_query_step_split(
     on, each stage records the span that queues its ops: ``step.dense``
     (scan, f16 rescore, MMR), ``step.bm25_core`` (subset statistics, idf,
     the head and tail scores), ``step.bm25_select`` (the selection, the
-    approx route's exact pool rescore, the finish) and ``step.fuse``."""
+    approx route's exact pool rescore, the finish) and ``step.fuse``.
+    ``step.bm25_core`` counts ``bm25_k_slots``, the head and tail slots
+    its product is handed (H + T as padded; the approx route's kernel
+    skips each 64-slot chunk that is wholly padding)."""
     with metrics.span("step.dense"):
         vec_rows, vec_dist = _dense_branch(
             emb, mask_bias, q_vecs,
             k_vector=k_vector, pool=pool, use_mmr=use_mmr,
             mmr_lambda=mmr_lambda, emb16=emb16, rescore_pool=rescore_pool,
         )
-    with metrics.span("step.bm25_core"):
+    with metrics.span("step.bm25_core",
+                      bm25_k_slots=h_slots.shape[0] + t_tids.shape[0]):
         keep, n_sub, avgdl = subset_stats(mask_bias, doc_len)
         idf = okapi_idf(df, n_sub)
         # Fast BM25: approx mode + packed rows available → bf16-rounded
-        # sat matrices, with the exact pool rescore restoring final ranks.
+        # sat matrices, with the exact pool rescore restoring final ranks
+        # (on CUDA one kernel, ops/bm25_core.py).
         fast = select == "approx" and term_ids is not None
         bm_scores = bm25_split_score_core(
             tf_head, post_rows, post_tfs, doc_len, keep, idf, avgdl,

@@ -128,7 +128,8 @@ def test_run_scale_recall_equals_root(scales):
     # The CPU runs the plain versions: no kernel launch counted.
     assert detail["timed_launches"] == {"topk_scan": 0, "topk_merge": 0,
                                         "row_select": 0,
-                                        "row_select_merge": 0}
+                                        "row_select_merge": 0,
+                                        "bm25_sat_gemm": 0}
     assert detail["timed_batches"] >= 2
 
 

@@ -32,6 +32,13 @@ Tolerances:
 - the int8 scan's stage 1 (``ops/quant.py``, ``torch._int_mm`` with its
   query and width padding): int32 scores and candidates EQUAL to the
   CPU's int32 product (exact integer sums).
+- bm25_sat_gemm (the approx route's BM25 core): its tail postings, made
+  dense, EQUAL to the plain core's tail matrix (integer tf); its bf16
+  operand EQUAL, bit for
+  bit, to the plain ``sat.to(torch.bfloat16)`` (read back through one-hot
+  weights); scores within 4e-5 of the row's |w| @ sat, + 1e-6 (bf16
+  products, exact in f32, summed on the tensor cores in another order);
+  after the approx route's exact pool rescore, rows and values EQUAL.
 - the store's packed step (one pinned, non-blocking upload of the
   batch metadata) vs the unpacked step on the same arrays uploaded one
   by one: rows EQUAL, scores within 1e-6 (the same ops on the same
@@ -636,3 +643,261 @@ def test_packed_store_step_equals_unpacked_on_card(cuda):
                                        getattr(want, name).cpu(),
                                        rtol=0, atol=1e-6, equal_nan=True)
         assert (out.rows >= 0).all()
+
+
+# ---------------------------------------------------------------------------
+# bm25_sat_gemm: the approx route's BM25 core (ops/bm25_core.py)
+# ---------------------------------------------------------------------------
+
+def _tail_windows(rng, n, t_live, t_pad, r_cap):
+    """Term-sorted tail postings of ``t_live`` terms over ``n`` rows and
+    their window table: long lists cut into several r_cap segments, and
+    for every third term an overlay window after the base postings that
+    moves some of its rows to a new tf (their base entries set to 0), as
+    ``plan_tail_delta`` leaves them. Returns (post_rows, post_tfs,
+    u_starts, u_lens, u_cols, t_tids) as numpy arrays, padded as
+    ``split_query_arrays`` pads them."""
+    base_rows, base_tfs, segs, ov_rows, ov_tfs, ov_segs = [], [], [], [], [], []
+    pos = 0
+    for j in range(t_live):
+        m = int(rng.integers(1, 3 * r_cap))
+        rows = np.sort(rng.choice(n, size=min(m, n), replace=False))
+        tfs = rng.integers(1, 30, size=len(rows)).astype(np.uint8)
+        if j % 3 == 0 and len(rows) > 2:
+            moved = rows[1::2][:r_cap]
+            tfs[1::2][:len(moved)] = 0
+            ov_rows.append(moved)
+            ov_tfs.append(rng.integers(1, 255, size=len(moved)).astype(np.uint8))
+            ov_segs.append((j, len(moved)))
+        base_rows.append(rows)
+        base_tfs.append(tfs)
+        for k in range(0, len(rows), r_cap):
+            segs.append((pos + k, min(r_cap, len(rows) - k), j))
+        pos += len(rows)
+    p_base = pos
+    for (j, ln), rows in zip(ov_segs, ov_rows):
+        segs.append((pos, ln, j))
+        pos += ln
+    size = pos + r_cap + 64
+    post_rows = np.zeros(size, np.int32)
+    post_tfs = np.zeros(size, np.uint8)
+    post_rows[:p_base] = np.concatenate(base_rows) if base_rows else []
+    post_tfs[:p_base] = np.concatenate(base_tfs) if base_tfs else []
+    if ov_rows:
+        post_rows[p_base:pos] = np.concatenate(ov_rows)
+        post_tfs[p_base:pos] = np.concatenate(ov_tfs)
+    u = max(8, 1 << int(np.ceil(np.log2(max(len(segs), 1)))))
+    u_starts = np.zeros(u, np.int32)
+    u_lens = np.zeros(u, np.int32)
+    u_cols = np.full(u, -1, np.int32)
+    for i, (s, ln, j) in enumerate(segs):
+        u_starts[i], u_lens[i], u_cols[i] = s, ln, j
+    t_tids = np.full(t_pad, -1, np.int32)
+    t_tids[:t_live] = np.arange(t_live) + 1000
+    return post_rows, post_tfs, u_starts, u_lens, u_cols, t_tids
+
+
+def _bm25_case(cuda, b, n, *, h_live, h_pad, t_live, t_pad, seed=0,
+               r_cap=512):
+    """The kernel's inputs on the card: a sparse u8 head matrix [C, n]
+    (every 7th row masked out of ``keep``), ``h_live`` distinct slots
+    padded with -1 to ``h_pad``, a tail from ``_tail_windows``, row
+    lengths 5-100, avgdl over the kept rows (a tensor on the card, as
+    the step has it) and random weights [b, h_pad + t_pad] that are zero
+    at padding columns and, where b > 1, for the last query."""
+    rng = np.random.default_rng(seed)
+    c = h_pad + 8
+    tf_head = np.where(rng.random((c, n)) < 0.06,
+                       rng.integers(1, 40, size=(c, n)), 0).astype(np.uint8)
+    tf_head[0, :7] = [255, 200, 64, 1, 2, 3, 17]
+    h_slots = np.full(h_pad, -1, np.int32)
+    h_slots[:h_live] = rng.choice(c, size=h_live, replace=False)
+    windows = _tail_windows(rng, n, t_live, t_pad, r_cap)
+    doc_len = rng.integers(5, 101, size=n).astype(np.float32)
+    keep = np.ones(n, bool)
+    keep[::7] = False
+    w = rng.uniform(0.1, 9.0, size=(b, h_pad + t_pad)).astype(np.float32)
+    w[:, h_live:h_pad] = 0.0
+    w[:, h_pad + t_live:] = 0.0
+    if b > 1:
+        w[-1] = 0.0
+    up = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+    post_rows, post_tfs, u_starts, u_lens, u_cols, t_tids = map(up, windows)
+    avgdl = up(np.float32(doc_len[keep].mean()))
+    return dict(tf_head=up(tf_head), h_slots=up(h_slots), post_rows=post_rows,
+                post_tfs=post_tfs, u_starts=u_starts, u_lens=u_lens,
+                u_cols=u_cols, t_tids=t_tids, doc_len=up(doc_len),
+                keep=up(keep), avgdl=avgdl.reshape(()),
+                w=up(w).to(torch.bfloat16), r_cap=r_cap)
+
+
+def _bm25_kernel_and_plain(cs):
+    """The kernel's and the plain version's scores on the same operands,
+    and the tail's postings and its dense tf [T, N]."""
+    from classmate_rag_tpu_torch.ops import bm25_core
+
+    n = cs["tf_head"].shape[1]
+    tail = bm25_core.tail_postings(cs["post_rows"], cs["post_tfs"],
+                                   cs["u_starts"], cs["u_lens"],
+                                   cs["u_cols"], n, cs["r_cap"])
+    args = (cs["tf_head"], cs["h_slots"], tail, cs["doc_len"], cs["keep"],
+            cs["avgdl"], cs["w"])
+    got = bm25_core.sat_gemm(*args)
+    want = bm25_core.sat_gemm_reference(*args)
+    return got, want, bm25_core.tail_matrix(tail, cs["t_tids"].shape[0], n)
+
+
+def _bm25_operand(cs, tail_tf):
+    """The plain bf16 operand of the head slots' rows, then the tail's."""
+    from classmate_rag_tpu_torch.ops import bm25_core
+
+    head = cs["tf_head"][cs["h_slots"].clamp(min=0).long()] * (
+        cs["h_slots"] >= 0)[:, None]
+    return bm25_core.sat_operand(torch.cat((head, tail_tf), 0),
+                                 cs["doc_len"], cs["keep"], cs["avgdl"])
+
+
+# (B, N, live head slots, padded, live tail terms, padded): B 1, 7 (one
+# 64-query block), 256 and 300 (two 256-query blocks); N ragged (not a
+# multiple of 16: the kernel's byte loads; not of 128: a partial block),
+# a shard's width of the 1M corpus, and a few full blocks.
+BM25_CASES = [
+    (1, 4096 + 77, 3, 8, 2, 8),
+    (7, 262_144, 40, 64, 20, 32),
+    (256, 20_000, 70, 128, 90, 128),
+    (256, 262_144 + 16, 130, 256, 60, 64),
+    (300, 5000 + 3, 17, 32, 9, 16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,h_live,h_pad,t_live,t_pad", BM25_CASES)
+def test_bm25_sat_gemm_matches_plain(cuda, b, n, h_live, h_pad, t_live,
+                                     t_pad):
+    """Scores within 4e-5 of |w| @ sat (+1e-6) of the plain version (bf16
+    products, exact in f32, summed in another order); the tail's postings,
+    made dense, EQUAL to the plain core's tail matrix; masked rows and the
+    term-less last query exact 0."""
+    from classmate_rag_tpu_torch.index import lexical as tlex
+
+    cs = _bm25_case(cuda, b, n, h_live=h_live, h_pad=h_pad, t_live=t_live,
+                    t_pad=t_pad, seed=b + n)
+    got, want, tail_tf = _bm25_kernel_and_plain(cs)
+    sums = tlex.tail_tf_matrix(cs["post_rows"], cs["post_tfs"],
+                               cs["u_starts"], cs["u_lens"], cs["u_cols"],
+                               t_pad, n, cs["r_cap"])
+    scale = cs["w"].float().abs() @ _bm25_operand(cs, tail_tf).float()
+    torch.cuda.synchronize()
+    assert torch.equal(tail_tf.float(), sums.T)
+    assert ((got - want).abs() <= 4e-5 * scale + 1e-6).all()
+    assert not got[:, ~cs["keep"]].any() and (b == 1 or not got[-1].any())
+    assert (got > 0).sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h_pad,t_pad", [(64, 64), (32, 24)])
+def test_bm25_sat_operand_bit_equal(cuda, h_pad, t_pad):
+    """One-hot weights (query q weighs slot q alone) read the kernel's bf16
+    operand back exactly: equal, bit for bit, to the plain version's
+    ``sat.to(torch.bfloat16)`` times keep, head slots and tail terms
+    alike, at 128 and at 56 queries."""
+    k = h_pad + t_pad
+    cs = _bm25_case(cuda, k, 8192 + 40, h_live=h_pad - 5, h_pad=h_pad,
+                    t_live=t_pad - 3, t_pad=t_pad, seed=k)
+    cs["w"] = torch.eye(k, device=cuda, dtype=torch.bfloat16)
+    got, _, tail_tf = _bm25_kernel_and_plain(cs)
+    sat = _bm25_operand(cs, tail_tf)
+    want = sat.float() * cs["keep"][None, :]
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert (sat[:h_pad].float() > 0).sum() > 1000
+    assert (sat[h_pad:].float() > 0).sum() > 100
+
+
+@pytest.mark.cuda
+def test_bm25_select_after_rescore_equals_plain(cuda):
+    """The approx route's selection with its exact pool rescore gives EQUAL
+    rows and values from the kernel's scores and from the plain core's
+    (``bm25_split_score_core(fast=True)`` on the CPU's copy, moved over):
+    the rescore fixes the final order. The launches: one kernel each."""
+    from classmate_rag_tpu_torch.index import lexical as tlex
+    from classmate_rag_tpu_torch.ops import bm25_core
+    from classmate_rag_tpu_torch.ops.hybrid_step import bm25_select
+
+    rng = np.random.default_rng(3)
+    n_docs, vocab_n = 30_000, 4000
+    p = 1.0 / np.arange(1, vocab_n + 1)
+    p /= p.sum()
+    vocab = {}
+    ids = np.full((n_docs, 48), -1, np.int32)
+    tfs = np.zeros((n_docs, 48), np.uint8)
+    dl = np.zeros(n_docs, np.float32)
+    docs = []
+    for i in range(n_docs):
+        doc = [f"t{j}" for j in rng.choice(vocab_n, size=int(
+            rng.integers(12, 60)), p=p)]
+        docs.append(doc)
+        ids[i], tfs[i], dl[i] = tlex.pack_tokens(doc, vocab, 48)
+    vpad = 4096
+    lay = tlex.build_split_layout(ids, tfs, len(vocab),
+                                  head_bytes_budget=200 * n_docs,
+                                  head_df_threshold=64)
+    keep = np.ones(n_docs, bool)
+    keep[::11] = False
+    df = tlex.subset_df(torch.from_numpy(ids), torch.from_numpy(tfs),
+                        torch.from_numpy(keep), vpad)
+    n_sub = torch.tensor(np.float32(keep.sum()))
+    idf = tlex.okapi_idf(df, n_sub)
+    avgdl = torch.tensor(np.float32(dl[keep].sum() / keep.sum()))
+    queries = [docs[i][:7] for i in rng.choice(n_docs, size=64)]
+    q_terms, q_counts = tlex.pack_query_terms(vocab, queries, 8)
+    qa = tlex.split_query_arrays(lay["lut"], lay["offsets"], q_terms,
+                                 q_counts, r_cap=lay["r_cap"])
+    args = [lay["tf_head"], lay["post_rows"], lay["post_tfs"], dl, keep, idf,
+            avgdl, qa["h_slots"], qa["h_tids"], qa["u_starts"], qa["u_lens"],
+            qa["u_cols"], qa["t_tids"], q_terms, q_counts]
+    cpu = [torch.as_tensor(np.asarray(x)) for x in args]
+    dev = [x.to(cuda) for x in cpu]
+    kw = dict(vocab_pad=vpad, r_cap=lay["r_cap"], fast=True)
+    before = dict(bm25_core.LAUNCHES)
+    got = tlex.bm25_split_score_core(*dev, **kw)
+    assert bm25_core.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    want = tlex.bm25_split_score_core(*cpu, **kw).to(cuda)
+    bias = torch.where(dev[4], 0.0, NEG_INF)
+    ctx = (torch.from_numpy(ids).to(cuda), torch.from_numpy(tfs).to(cuda),
+           dev[3], dev[6], dev[5], dev[13], dev[14])
+    out = [bm25_select(s, bias, 8, select="approx", rescore_ctx=ctx)
+           for s in (got, want)]
+    torch.cuda.synchronize()
+    assert torch.equal(out[0][1], out[1][1])
+    assert torch.equal(out[0][0].view(torch.int32), out[1][0].view(torch.int32))
+    assert (out[0][0] > 0).all()
+
+
+@pytest.mark.cuda
+def test_bm25_sat_gemm_rejects_wrong_inputs(cuda):
+    from classmate_rag_tpu_torch.ops import bm25_core
+
+    cs = _bm25_case(cuda, 4, 4096, h_live=5, h_pad=8, t_live=3, t_pad=8)
+    n = cs["tf_head"].shape[1]
+    tail = bm25_core.tail_postings(cs["post_rows"], cs["post_tfs"],
+                                   cs["u_starts"], cs["u_lens"],
+                                   cs["u_cols"], n, cs["r_cap"])
+    ok = [cs["tf_head"], cs["h_slots"], tail, cs["doc_len"], cs["keep"],
+          cs["avgdl"], cs["w"]]
+    before = dict(bm25_core.LAUNCHES)
+    bad = [
+        (2, tail._replace(off=tail.off.cpu())),          # wrong device
+        (5, cs["avgdl"].cpu()),
+        (0, cs["tf_head"].float()),                      # wrong dtype
+        (6, cs["w"].float()),
+        (2, tail._replace(rows=tail.rows.long())),
+        (6, cs["w"][:, :-3]),                            # H + T not / 8
+        (1, cs["h_slots"][:-3]),                         # H not / 8
+        (2, tail._replace(off=tail.off[:-1])),           # wrong shape
+        (0, cs["tf_head"].t().contiguous().t()),         # not contiguous
+    ]
+    for i, x in bad:
+        with pytest.raises((TypeError, ValueError)):
+            bm25_core.sat_gemm(*ok[:i], x, *ok[i + 1:])
+    assert bm25_core.LAUNCHES == before

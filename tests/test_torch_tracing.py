@@ -108,8 +108,11 @@ def test_store_call_records_every_stage_of_one_batch(store):
         "tail_slots": live * r_cap,
     }
     assert 0 < qa["u_lens"].sum() <= live * r_cap
+    assert by_name["step.bm25_core"].counts == {
+        "bm25_k_slots": len(qa["h_slots"]) + len(qa["t_tids"]),
+    }
     for name in PARENT:
-        if name != "store.inputs.split":
+        if name not in ("store.inputs.split", "step.bm25_core"):
             assert by_name[name].counts == {}, name
 
 
